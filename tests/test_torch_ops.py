@@ -1,0 +1,156 @@
+"""The port's kernels (dddmr_navigation_tpu_torch.ops) against the JAX
+package's Pallas kernels, run in interpret mode, and their XLA references.
+
+On the CPU the port's wrappers take their plain PyTorch versions; the tests
+marked ``cuda`` compare each hand-written kernel with its plain version on
+the card and skip where there is none.
+"""
+from functools import partial
+
+import numpy as np
+import jax
+import pytest
+import torch
+
+from dddmr_navigation_tpu.ops.collision import swept_box_hits as jax_hits
+from dddmr_navigation_tpu.ops.distance_field import (
+    masked_min_distance as jax_min_dist)
+from dddmr_navigation_tpu_torch.ops import (
+    swept_box_hits, swept_box_hits_plain, masked_min_distance,
+    masked_min_distance_plain)
+from dddmr_navigation_tpu_torch.planning.local.critics import cuboid_box
+from dddmr_navigation_tpu.config import CuboidConfig
+
+torch.set_num_threads(1)
+# Nothing here is a matmul; TF32 stays off so no comparison could use it.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+HALF = cuboid_box(CuboidConfig(), "cpu")[2]     # f32 half extents
+MARGIN = 1e-4                                    # min distance to a box face
+
+
+def box_inputs(seed, b=3, s=25, n=16, m=32):
+    """Random boxes and obstacles, with every obstacle at least MARGIN from
+    every face plane of every box (hits are then exact compare results)."""
+    rng = np.random.default_rng(seed)
+    axes = np.linalg.qr(rng.normal(size=(b, s, n, 3, 3)))[0]
+    axes = np.ascontiguousarray(np.swapaxes(axes, -1, -2), np.float32)
+    centers = rng.uniform(-3.0, 3.0, size=(b, s, n, 3))
+    projc = np.einsum("bsnkj,bsnj->bsnk", axes.astype(np.float64),
+                      centers).astype(np.float32)
+    step_valid = rng.uniform(size=(b, s, n)) < 0.8
+    obs = rng.uniform(-3.0, 3.0, size=(b, m, 3)).astype(np.float32)
+    half = np.asarray(HALF, np.float64)
+    for _ in range(100):
+        d = np.abs(np.einsum("bsnkj,bmj->bsnkm", axes.astype(np.float64),
+                             obs.astype(np.float64))
+                   - projc[..., None].astype(np.float64))
+        near = (np.abs(d - half[:, None]) < MARGIN).any(axis=(1, 2, 3))
+        if not near.any():
+            break
+        obs[near] = rng.uniform(-3.0, 3.0, size=(int(near.sum()), 3))
+    else:
+        raise AssertionError("could not place obstacles off the box faces")
+    obs_valid = rng.uniform(size=(b, m)) < 0.9
+    return axes, projc, step_valid, obs, obs_valid
+
+
+@pytest.fixture(scope="module")
+def jax_hit_fns():
+    half = np.asarray(HALF, np.float32)
+    return {be: jax.jit(jax.vmap(partial(jax_hits, half=half, backend=be)))
+            for be in ("pallas_interpret", "xla")}
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("backend", ["pallas_interpret", "xla"])
+def test_swept_box_hits_matches_jax(jax_hit_fns, seed, backend):
+    axes, projc, step_valid, obs, obs_valid = box_inputs(seed)
+    want = np.asarray(jax_hit_fns[backend](axes, projc, step_valid, obs,
+                                           obs_valid))
+    got = swept_box_hits(torch.as_tensor(axes), torch.as_tensor(projc),
+                         torch.as_tensor(step_valid), torch.as_tensor(obs),
+                         torch.as_tensor(obs_valid), HALF)
+    assert got.dtype == torch.bool and got.shape == want.shape
+    assert 0 < want.sum() < want.size          # both outcomes occur
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def dist_inputs(seed, b=3, q=200, m=40):
+    rng = np.random.default_rng(seed)
+    queries = rng.uniform(-3, 3, size=(b, q, 3)).astype(np.float32)
+    points = rng.uniform(-3, 3, size=(b, m, 3)).astype(np.float32)
+    # global coordinates of O(10 m), as plans and rollouts have
+    queries += np.float32(12.0)
+    points += np.float32(12.0)
+    q_mask = rng.uniform(size=(b, q)) < 0.8
+    p_mask = rng.uniform(size=(b, m)) < 0.7
+    p_mask[-1] = False                          # one robot without points
+    return queries, q_mask, points, p_mask
+
+
+@pytest.fixture(scope="module")
+def jax_dist_fns():
+    return {be: jax.jit(jax.vmap(partial(jax_min_dist, backend=be)))
+            for be in ("pallas_interpret", "xla")}
+
+
+@pytest.mark.parametrize("backend", ["pallas_interpret", "xla"])
+def test_masked_min_distance_matches_jax(jax_dist_fns, backend):
+    queries, q_mask, points, p_mask = dist_inputs(0)
+    want = np.asarray(jax_dist_fns[backend](queries, q_mask, points, p_mask))
+    got = masked_min_distance(*map(torch.as_tensor,
+                                   (queries, q_mask, points, p_mask)))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    # rtol 1e-6: the same f32 operation order on both sides; XLA may
+    # round a sum differently by an ulp.
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+    assert np.all(got.numpy()[~q_mask] == 1e6)
+    np.testing.assert_allclose(got.numpy()[-1], 1e6, rtol=1e-6)
+
+
+def test_wrappers_reject_other_devices():
+    axes, projc, step_valid, obs, obs_valid = map(
+        torch.as_tensor, box_inputs(0, b=1, s=2, n=2, m=4))
+    with pytest.raises(ValueError, match="no kernel"):
+        swept_box_hits(axes.to("meta"), projc, step_valid, obs, obs_valid,
+                       HALF)
+    q, qm, p, pm = map(torch.as_tensor, dist_inputs(0, b=1, q=4, m=4))
+    with pytest.raises(ValueError, match="no kernel"):
+        masked_min_distance(q.to("meta"), qm, p, pm)
+
+
+# ---------------------------------------------------------------------------
+# on the card: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_swept_box_hits_kernel_matches_plain(cuda_device, seed):
+    args = [torch.as_tensor(a, device=cuda_device) for a in box_inputs(seed)]
+    before = swept_box_hits.launches
+    got = swept_box_hits(*args, HALF)
+    torch.cuda.synchronize()
+    assert swept_box_hits.launches == before + 1
+    want = swept_box_hits_plain(*args, HALF)
+    assert 0 < int(want.sum()) < want.numel()  # both outcomes occur
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_masked_min_distance_kernel_matches_plain(cuda_device):
+    args = [torch.as_tensor(a, device=cuda_device) for a in dist_inputs(0)]
+    before = masked_min_distance.launches
+    got = masked_min_distance(*args)
+    torch.cuda.synchronize()
+    assert masked_min_distance.launches == before + 1
+    # the same operation order, no FMA, correctly rounded sqrt: bit equal
+    assert torch.equal(got, masked_min_distance_plain(*args))
