@@ -26,10 +26,46 @@ In order, and any failed check raises (exit code 1):
      name and power limit; then profiles
      a few ticks for device time by kernel and the device's busy share.
 
+Then the fused phase, bench config 3 (``bench.py::bench_config3``) at
+full width: the multi-level map (3,116 ground nodes, 16 direction bins), a
+96×96×44 perception window, a 16×1000 lidar, 64×128 = 8,192 samples of 40
+steps, one robot; any failed check raises:
+  7. builds the map and the robot's state from the shared numpy map functions;
+  8. holds the map's direction bins against the JAX golden file
+     (``dddmr_navigation_tpu_torch/testdata/config3_golden.npz``) exactly,
+     its edge azimuths and turning table within 1e-6;
+  9. teacher-forced stages: from the golden's tick-0 entry costs and
+     tables the turning relaxation must give JAX's field bit for bit and
+     the same iteration count; from JAX's field the extraction must give
+     JAX's node ids;
+ 10. the golden's 20-tick chain, teacher-forced on its poses (each tick's
+     scan simulated with ``lidar_sim`` at the recorded pose, and checked
+     against the golden's recorded scan), on the kernel path and on the
+     plain path: state codes, plan_ok, plan counts, relaxation
+     iterations and best indices equal on both; against the golden the
+     integer outputs equal (a best index may differ only as a tie within
+     1e-5 of JAX's cost), the composed dGraph and plan positions within
+     1e-5 m; one ``swept_box_hits`` and two ``masked_min_distance``
+     launches per tick;
+ 11. each kernel against its plain version on the fused tick's arguments at
+     ticks 0, 10 and 19 of the chain run with one more box in the robot's
+     path (config 3's own box is never in a rollout's way), so that the
+     plain hits hold both outcomes;
+ 12. times the chain: tick median, p95 and p99 from CUDA events over
+     ``FUSED_CHAINS`` chains with the spread of the per-chain medians, the
+     time between stage boundaries (mark/clear; composition and prepare;
+     relaxation; extraction and interpolation; the local tick), host
+     syncs per tick, the plain path's median, a profile, and peak memory.
+
 The line before the last is one JSON object with each kernel's route,
-source, launches, error and time; the last line is
-``{"ok": true, "device": {...}}``. TF32 is off (nothing on the tick is a
-matmul, so it would change nothing).
+source, launches, error and time: ``launches`` counts both phases' chains
+(each counter set to 0 just before its chain and read just after),
+``max_abs_err`` is the largest over both phases' checks, ``ms`` and
+``plain_ms`` add a headline tick's and a fused tick's calls, and
+``paths`` gives each phase's own numbers. The last line is
+``{"ok": true, "device": {...}}``. TF32 is off and matmuls run at full
+f32 ("highest"): the fused tick's distance field and cluster sums are
+matmuls, as the JAX package runs them at Precision.HIGHEST.
 """
 import contextlib
 import json
@@ -37,6 +73,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TICKS = 50
@@ -45,6 +82,15 @@ TIMED_CHAINS = 10
 KERNEL_REPS = 50
 PROFILED_TICKS = 5
 CHECK_TICKS = (0, TICKS // 2, TICKS - 1)   # kernel vs plain at these ticks
+PER_TICK = {"swept_box_hits": 1, "masked_min_distance": 2}   # launches
+
+FUSED_TICKS = 20                  # the golden chain's length
+FUSED_CHAINS = 6                  # timed chains of the fused phase
+FUSED_CHECK_TICKS = (0, 10, FUSED_TICKS - 1)
+# A box in the robot's path for the kernel checks only: config 3's own box
+# lies behind the robot, and no rollout of the chain reaches it.
+FUSED_CHECK_BOX = ((9.1, 7.6, 0.0), (9.5, 8.0, 1.0))
+FUSED_PROFILED_TICKS = 3
 
 
 def fail(msg):
@@ -84,80 +130,37 @@ def critics_calling(hits_fn, dist_fn):
         critics.swept_box_hits, critics.masked_min_distance = saved
 
 
-def main():
-    import numpy as np
-    import torch
-
-    check(torch.cuda.is_available(), "no CUDA device")
-    check(os.path.isdir(os.path.join(ROOT, "dddmr_navigation_tpu_torch")),
-          f"no dddmr_navigation_tpu_torch package beside {__file__}")
-    sys.path.insert(0, ROOT)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-
-    from dddmr_navigation_tpu_torch import entry, ops
-    from dddmr_navigation_tpu_torch.ops import build
-
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]} device "
-          f"{torch.cuda.get_device_name(0)}", flush=True)
-
-    # 2. build
-    t0 = time.perf_counter()
-    lib_path, report = build.build()
-    build.load_library()
-    print(f"build: {time.perf_counter() - t0:.2f} s -> "
-          f"{os.path.relpath(lib_path, ROOT)}")
-    for line in report.splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            print("  ptxas:", line.strip())
-
-    cfg = entry.headline_config()
-    plans, state, obstacles, obs_valid = entry.headline_inputs(
-        cfg, ROBOTS, dev)
-    samples = cfg.generator.n_samples_padded
-
-    # 3. each kernel against its plain version, on the arguments the chain
-    # gives it at CHECK_TICKS. Tick 0's collision sweep cannot hit anything
-    # (the robots stand still, every obstacle is beyond the swept boxes), so
-    # later ticks, where some samples hit and others do not, are checked too.
-    per_tick = {"swept_box_hits": 1, "masked_min_distance": 2}
-    calls = {name: [] for name in per_tick}
-    seen = dict.fromkeys(per_tick, 0)
+def recorder_pair(check_ticks):
+    """Wrappers of the two kernel entry points that keep the arguments of
+    the calls made at ``check_ticks`` (tick = call count // calls per
+    tick). Returns ({name: wrapper factory}, {name: [(tick, args)]})."""
+    calls = {name: [] for name in PER_TICK}
+    seen = dict.fromkeys(PER_TICK, 0)
 
     def recorder(name, fn):
         def rec(*args):
-            if seen[name] // per_tick[name] in CHECK_TICKS:
-                calls[name].append((seen[name] // per_tick[name], args))
+            if seen[name] // PER_TICK[name] in check_ticks:
+                calls[name].append((seen[name] // PER_TICK[name], args))
             seen[name] += 1
             return fn(*args)
         return rec
+    return recorder, calls
 
-    with critics_calling(recorder("swept_box_hits", ops.swept_box_hits),
-                         recorder("masked_min_distance",
-                                  ops.masked_min_distance)):
-        entry.run_chain(cfg, plans, state, obstacles, obs_valid,
-                        max(CHECK_TICKS) + 1)
-    torch.cuda.synchronize()
-    check(all(len(calls[k]) == per_tick[k] * len(CHECK_TICKS)
+
+def check_kernels(kernels, calls, check_ticks):
+    """Each kernel against its plain version on the recorded arguments:
+    hits equal exactly, and the plain hits hold both outcomes over the
+    checked ticks; distances within rtol 1e-6. Returns {name:
+    dict(max_abs_err, ms, plain_ms)}, ms per tick (all of a tick's calls),
+    averaged over ``check_ticks``."""
+    import torch
+    check(all(len(calls[k]) == PER_TICK[k] * len(check_ticks)
               for k in calls),
           f"unexpected kernel calls per tick: "
           f"{ {k: len(v) for k, v in calls.items()} }")
-
-    kernels = {
-        "swept_box_hits": dict(
-            kernel=ops.swept_box_hits, plain=ops.swept_box_hits_plain,
-            source="dddmr_navigation_tpu_torch/csrc/swept_box_hits.cu",
-            replaces="dddmr_navigation_tpu/ops/collision.py:122"),
-        "masked_min_distance": dict(
-            kernel=ops.masked_min_distance,
-            plain=ops.masked_min_distance_plain,
-            source="dddmr_navigation_tpu_torch/csrc/masked_min_distance.cu",
-            replaces="dddmr_navigation_tpu/ops/distance_field.py:91"),
-    }
+    stats = {}
     for name, k in kernels.items():
-        k.update(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
+        st = stats[name] = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
         hits = total = 0
         for t, args in calls[name]:
             got = k["kernel"](*args)
@@ -186,36 +189,168 @@ def main():
             shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
             print(f"{name} tick {t} {shapes} ({what}): max_abs_err {err!r} "
                   f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-            k["max_abs_err"] = max(k["max_abs_err"], err)
-            # per tick: all of a tick's calls, averaged over CHECK_TICKS
-            k["ms"] += ms / len(CHECK_TICKS)
-            k["plain_ms"] += plain_ms / len(CHECK_TICKS)
+            st["max_abs_err"] = max(st["max_abs_err"], err)
+            st["ms"] += ms / len(check_ticks)
+            st["plain_ms"] += plain_ms / len(check_ticks)
         if name == "swept_box_hits":
             # both outcomes occur, so a kernel that never (or always) hits
             # disagrees with the plain version above
             check(0 < hits < total, f"{name}: the plain version gives "
-                  f"{hits}/{total} hits at ticks {CHECK_TICKS}; the "
+                  f"{hits}/{total} hits at ticks {check_ticks}; the "
                   f"comparison could not fail")
+    return stats
+
+
+def reset_launches(ops):
+    ops.swept_box_hits.launches = 0
+    ops.masked_min_distance.launches = 0
+
+
+def read_launches(ops):
+    return {"swept_box_hits": ops.swept_box_hits.launches,
+            "masked_min_distance": ops.masked_min_distance.launches}
+
+
+def profile_ticks(step, n, kernel_names):
+    """Device time by kernel over ``n`` calls of ``step`` (one tick each)
+    and the device's busy share of that window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        e0.record()
+        for _ in range(n):
+            step()
+        e1.record()
+        torch.cuda.synchronize()
+    window_us = e0.elapsed_time(e1) * 1e3
+    device = [(ev.key, ev.self_device_time_total, ev.count)
+              for ev in prof.key_averages()
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(t for _, t, _ in device)
+    n_kernels = sum(c for _, _, c in device)
+    if busy_us <= 0:
+        print("profile: no device time recorded (device busy share not "
+              "measured)")
+        return
+    print(f"profile ({n} ticks): device busy {busy_us / n:.1f} us/tick of "
+          f"{window_us / n:.1f} us/tick ({100 * busy_us / window_us:.1f}% "
+          f"busy), {n_kernels / n:.0f} device kernels per tick")
+    for key, t, c in sorted(device, key=lambda d: -d[1])[:10]:
+        print(f"  {t / n:9.1f} us/tick  {c / n:5.1f} calls/tick  {key[:90]}")
+    for name in kernel_names:
+        mine = [(t, c) for key, t, c in device if f"{name}_kernel" in key]
+        t, c = sum(m[0] for m in mine), sum(m[1] for m in mine)
+        print(f"  kernel {name}: device {t / n:.1f} us/tick over "
+              f"{c / n:.0f} launches/tick")
+
+
+def main():
+    import numpy as np
+    import torch
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    check(os.path.isdir(os.path.join(ROOT, "dddmr_navigation_tpu_torch")),
+          f"no dddmr_navigation_tpu_torch package beside {__file__}")
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda")
+
+    from dddmr_navigation_tpu_torch import entry, ops
+    from dddmr_navigation_tpu_torch.ops import build
+
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]} device "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+
+    # 2. build
+    t0 = time.perf_counter()
+    lib_path, report = build.build()
+    build.load_library()
+    print(f"build: {time.perf_counter() - t0:.2f} s -> "
+          f"{os.path.relpath(lib_path, ROOT)}")
+    for line in report.splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            print("  ptxas:", line.strip())
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    card = smi.stdout.strip().splitlines()[0]
+
+    kernels = {
+        "swept_box_hits": dict(
+            kernel=ops.swept_box_hits, plain=ops.swept_box_hits_plain,
+            source="dddmr_navigation_tpu_torch/csrc/swept_box_hits.cu",
+            replaces="dddmr_navigation_tpu/ops/collision.py:122"),
+        "masked_min_distance": dict(
+            kernel=ops.masked_min_distance,
+            plain=ops.masked_min_distance_plain,
+            source="dddmr_navigation_tpu_torch/csrc/masked_min_distance.cu",
+            replaces="dddmr_navigation_tpu/ops/distance_field.py:91"),
+    }
+    paths = {"headline": headline_phase(np, torch, dev, entry, ops, kernels,
+                                        card),
+             "fused": fused_phase(np, torch, dev, entry, ops, kernels, card)}
+
+    print(card)
+    out = []
+    for name, k in kernels.items():
+        per = {p: paths[p][name] for p in paths}
+        out.append({
+            "name": name, "route": "cuda", "source": k["source"],
+            "replaces": k["replaces"],
+            "launches": sum(v["launches"] for v in per.values()),
+            "max_abs_err": max(v["max_abs_err"] for v in per.values()),
+            "ms": sum(v["ms"] for v in per.values()),
+            "plain_ms": sum(v["plain_ms"] for v in per.values()),
+            "paths": per})
+    print(json.dumps({"kernels": out}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def headline_phase(np, torch, dev, entry, ops, kernels, card):
+    """Steps 3-6: the 64-robot headline chain. Returns {kernel name:
+    dict(launches, max_abs_err, ms, plain_ms)}."""
+    cfg = entry.headline_config()
+    plans, state, obstacles, obs_valid = entry.headline_inputs(
+        cfg, ROBOTS, dev)
+    samples = cfg.generator.n_samples_padded
+
+    # 3. each kernel against its plain version, on the arguments the chain
+    # gives it at CHECK_TICKS. Tick 0's collision sweep cannot hit anything
+    # (the robots stand still, every obstacle is beyond the swept boxes), so
+    # later ticks, where some samples hit and others do not, are checked too.
+    recorder, calls = recorder_pair(CHECK_TICKS)
+    with critics_calling(recorder("swept_box_hits", ops.swept_box_hits),
+                         recorder("masked_min_distance",
+                                  ops.masked_min_distance)):
+        entry.run_chain(cfg, plans, state, obstacles, obs_valid,
+                        max(CHECK_TICKS) + 1)
+    torch.cuda.synchronize()
+    stats = check_kernels(kernels, calls, CHECK_TICKS)
 
     # 4. the 50-tick chain, through the kernels, then through the plain
     # versions; the launch counters are read around the kernel run only
-    ops.swept_box_hits.launches = 0
-    ops.masked_min_distance.launches = 0
+    reset_launches(ops)
     chain = entry.run_chain(cfg, plans, state, obstacles, obs_valid, TICKS)
     torch.cuda.synchronize()
-    launches = {"swept_box_hits": ops.swept_box_hits.launches,
-                "masked_min_distance": ops.masked_min_distance.launches}
+    launches = read_launches(ops)
     print(f"launches in the {TICKS}-tick chain: {launches}")
-    check(launches == {"swept_box_hits": TICKS,
-                       "masked_min_distance": 2 * TICKS},
+    check(launches == {k: n * TICKS for k, n in PER_TICK.items()},
           f"launch counts {launches}, expected {TICKS} and {2 * TICKS}")
     with critics_calling(ops.swept_box_hits_plain,
                          ops.masked_min_distance_plain):
         plain = entry.run_chain(cfg, plans, state, obstacles, obs_valid, TICKS)
     torch.cuda.synchronize()
-    check(ops.swept_box_hits.launches == TICKS
-          and ops.masked_min_distance.launches == 2 * TICKS,
-          "plain chain launched a kernel")
+    check(read_launches(ops) == launches, "plain chain launched a kernel")
     for field in ("state", "best_index", "found"):
         a, b = getattr(chain, field), getattr(plain, field)
         check(torch.equal(a, b), f"chain {field} differs kernel vs plain: "
@@ -279,11 +414,6 @@ def main():
                          ops.masked_min_distance_plain):
         plain_ms, _ = timed(2)
     med = float(np.median(ticks_ms))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    card = smi.stdout.strip().splitlines()[0]
     print(f"tick ({ROBOTS} robots x {samples} samples, kernel path, "
           f"n={ticks_ms.size}): median {med!r} ms, p95 "
           f"{float(np.percentile(ticks_ms, 95))!r} ms, p99 "
@@ -302,50 +432,306 @@ def main():
 
     # where a tick's device time goes: kernel time by name over a window
     # of PROFILED_TICKS ticks, and the device's busy share of that window
-    from torch.profiler import ProfilerActivity, profile
-    s = state
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        e0.record()
-        for _ in range(PROFILED_TICKS):
-            s, _cmd = entry.tick(cfg, plans, s, obstacles, obs_valid)
-        e1.record()
-        torch.cuda.synchronize()
-    window_us = e0.elapsed_time(e1) * 1e3
-    device = [(ev.key, ev.self_device_time_total, ev.count)
-              for ev in prof.key_averages()
-              if ev.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(t for _, t, _ in device)
-    n_kernels = sum(c for _, _, c in device)
-    if busy_us > 0:
-        print(f"profile ({PROFILED_TICKS} ticks): device busy "
-              f"{busy_us / PROFILED_TICKS:.1f} us/tick of "
-              f"{window_us / PROFILED_TICKS:.1f} us/tick "
-              f"({100 * busy_us / window_us:.1f}% busy), "
-              f"{n_kernels / PROFILED_TICKS:.0f} device kernels per tick")
-        for key, t, c in sorted(device, key=lambda d: -d[1])[:10]:
-            print(f"  {t / PROFILED_TICKS:9.1f} us/tick  {c / PROFILED_TICKS:5.1f}"
-                  f" calls/tick  {key[:90]}")
-        for name in kernels:
-            mine = [(t, c) for key, t, c in device if f"{name}_kernel" in key]
-            t, c = sum(m[0] for m in mine), sum(m[1] for m in mine)
-            print(f"  kernel {name}: device {t / PROFILED_TICKS:.1f} us/tick "
-                  f"over {c / PROFILED_TICKS:.0f} launches/tick")
-    else:
-        print("profile: no device time recorded (device busy share not "
-              "measured)")
+    s = [state]
 
-    print(card)
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": k["source"],
-         "replaces": k["replaces"], "launches": launches[name],
-         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-         "plain_ms": k["plain_ms"]} for name, k in kernels.items()]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    def step():
+        s[0], _cmd = entry.tick(cfg, plans, s[0], obstacles, obs_valid)
+    profile_ticks(step, PROFILED_TICKS, kernels)
+    return {name: dict(launches=launches[name], **stats[name])
+            for name in kernels}
+
+
+def fused_phase(np, torch, dev, entry, ops, kernels, card):
+    """Steps 7-12: bench config 3's fused tick at full width. Returns
+    {kernel name: dict(launches, max_abs_err, ms, plain_ms)}."""
+    from dddmr_navigation_tpu_torch.control import fused as tf
+    from dddmr_navigation_tpu_torch.planning.global_ import wavefront as tw
+
+    torch.cuda.reset_peak_memory_stats()
+    g = np.load(os.path.join(ROOT, "dddmr_navigation_tpu_torch", "testdata",
+                             "config3_golden.npz"))
+
+    # 7. build
+    t0 = time.perf_counter()
+    cfg = entry.config3_config()
+    c3 = entry.config3_inputs(cfg, dev)
+    fm = c3.fmap
+    gp, p, lp = cfg.global_planner, cfg.perception, cfg.local_planner
+    n_nodes, k_nbr = fm.nbr_idx.shape
+    print(f"fused: config 3 built in {time.perf_counter() - t0:.2f} s: "
+          f"G={n_nodes} ground nodes, K={k_nbr} neighbors, "
+          f"{gp.turning_dir_bins} direction bins; window "
+          f"{p.voxel_window_cells_xy}x{p.voxel_window_cells_xy}x"
+          f"{p.voxel_window_cells_z} = {p.voxel_window_cells_xy ** 2 * p.voxel_window_cells_z}"
+          f" cells; {p.lidar.range_image_rows * p.lidar.range_image_cols} "
+          f"scan points; {lp.generator.n_samples_padded} samples x "
+          f"{lp.generator.max_num_steps} steps", flush=True)
+
+    # 8. the map's tables against JAX's
+    def on_dev(x, dtype=None):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    bins_ok = torch.equal(fm.wf_bins.cpu(),
+                          torch.as_tensor(g["bins"].astype(np.int32)))
+    az_err = float((fm.wf_az - on_dev(g["az"])).abs().max())
+    pen_err = float((fm.turn_pen - on_dev(g["turn_pen"])).abs().max())
+    print(f"fused map tables: bins equal JAX's: {bins_ok}; max |az| diff "
+          f"{az_err!r}; max |turning table| diff {pen_err!r}")
+    check(bins_ok, "direction bins differ from JAX's: "
+          f"{int((fm.wf_bins.cpu().numpy() != g['bins']).sum())} edges")
+    check(az_err <= 1e-6 and pen_err <= 1e-6,
+          f"edge azimuths / turning table off JAX: {az_err} {pen_err}")
+
+    # 9. teacher-forced stages from the golden's tick-0 tables
+    enter = on_dev(g["enter"])[None]
+    goal_idx = on_dev(g["goal_idx"], torch.int64).view(1)
+    start_idx = on_dev(g["start_idx"], torch.int64).view(1)
+    bins = on_dev(g["bins"], torch.int32)
+    field, _, iters = tw.wavefront_distances_turning(
+        fm.nbr_idx, fm.nbr_dist, fm.nbr_valid[None], enter,
+        fm.avg_intensity, goal_idx, fm.ground, gp.turning_weight,
+        n_dir_bins=gp.turning_dir_bins, max_iters=gp.max_relax_iters,
+        az=on_dev(g["az"]), bin_of_edge=bins)
+    want_field = torch.as_tensor(g["relaxed"])
+    n_diff = int((field[0].cpu() != want_field).sum())
+    print(f"teacher-forced relaxation: {int(iters[0])} iterations (JAX "
+          f"{int(g['wf_iters'][0])}), {n_diff} of {want_field.numel()} "
+          f"field entries differ from JAX's")
+    check(n_diff == 0 and int(iters[0]) == int(g["wf_iters"][0]),
+          "teacher-forced relaxation differs from JAX's")
+    ids, valid, length, ok = tw.extract_path_turning(
+        fm.nbr_idx, fm.nbr_dist, fm.nbr_valid[None], enter,
+        on_dev(g["relaxed"])[None], bins, start_idx, goal_idx, fm.ground,
+        gp.turning_weight, max_len=gp.max_path_len,
+        turn_pen=on_dev(g["turn_pen"]))
+    ids_ok = np.array_equal(np.where(g["node_valid"], ids[0].cpu().numpy(), -1),
+                            np.where(g["node_valid"], g["node_ids"], -1))
+    valid_ok = np.array_equal(valid[0].cpu().numpy(), g["node_valid"])
+    print(f"teacher-forced extraction: {int(length[0])} nodes, ids equal "
+          f"JAX's: {ids_ok and valid_ok}")
+    check(ids_ok and valid_ok and bool(ok[0]),
+          "teacher-forced extraction differs from JAX's")
+
+    # 10. the 20-tick chain, teacher-forced on the golden's poses
+    def scans_for(world, check_golden):
+        scans, masks, n_off = [], [], 0
+        for t in range(FUSED_TICKS):
+            pts, mask = entry.config3_scan(cfg, world, g["positions"][t],
+                                           float(g["yaws"][t]))
+            if check_golden:
+                n = int(g["scan_count"][t])
+                idx = g["scan_idx"][n_off:n_off + n].astype(np.int64)
+                same = (np.array_equal(np.flatnonzero(mask), idx)
+                        and np.array_equal(pts[idx],
+                                           g["scan_pts"][n_off:n_off + n]))
+                check(same, f"tick {t}: lidar_sim's scan differs from the "
+                      f"golden's recorded scan")
+                n_off += n
+            scans.append(on_dev(pts)[None])
+            masks.append(on_dev(mask)[None])
+        return scans, masks
+
+    scans, masks = scans_for(entry.config3_world(), True)
+    print(f"scans: {FUSED_TICKS} sweeps simulated at the golden poses equal "
+          f"the golden's recorded scans ({int(g['scan_count'].sum())} valid "
+          f"points)")
+    poses = [on_dev(g[k])[:, None] for k in ("positions", "quats", "v_in",
+                                             "w_in")]
+    state0 = entry.config3_state(c3)
+
+    def run(tick=None, sc=scans, ms=masks):
+        return entry.run_fused_chain(c3, state0, sc, ms, *poses, tick=tick)
+
+    reset_launches(ops)
+    chain = run()
+    torch.cuda.synchronize()
+    launches = read_launches(ops)
+    print(f"launches in the {FUSED_TICKS}-tick fused chain: {launches}")
+    check(launches == {k: n * FUSED_TICKS for k, n in PER_TICK.items()},
+          f"fused launch counts {launches}, expected {FUSED_TICKS} and "
+          f"{2 * FUSED_TICKS}")
+    with critics_calling(ops.swept_box_hits_plain,
+                         ops.masked_min_distance_plain):
+        plain = run()
+    torch.cuda.synchronize()
+    check(read_launches(ops) == launches, "plain chain launched a kernel")
+    for field_name in ("state", "plan_ok", "plan_count", "wf_iters",
+                       "best_index"):
+        a, b = getattr(chain, field_name), getattr(plain, field_name)
+        check(torch.equal(a, b), f"fused chain {field_name} differs kernel "
+              f"vs plain: {torch.nonzero(a != b)[:5].tolist()}")
+    print(f"fused chain: kernel and plain paths equal; states "
+          f"{chain.state[:, 0].tolist()}; plan counts "
+          f"{chain.plan_count[:, 0].tolist()}; relaxation iterations "
+          f"{chain.wf_iters[:, 0].tolist()}")
+
+    # against the golden chain
+    for field_name in ("state", "plan_ok", "plan_count", "wf_iters"):
+        got = getattr(chain, field_name)[:, 0].cpu().numpy()
+        check(np.array_equal(got, g[field_name]),
+              f"fused {field_name} differs from JAX: {got.tolist()} vs "
+              f"{g[field_name].tolist()}")
+    best = chain.best_index[:, 0].cpu().numpy()
+    ties = []
+    for t in np.flatnonzero(best != g["best_index"]):
+        gap = abs(float(g["costs"][t, best[t]]
+                        - g["costs"][t, g["best_index"][t]]))
+        check(gap <= 1e-5, f"fused tick {t}: best index {best[t]} vs JAX "
+              f"{g['best_index'][t]}, cost gap {gap}")
+        ties.append((int(t), gap))
+    same = best == g["best_index"]
+    dvx = float(np.abs(chain.vx[:, 0].cpu().numpy() - g["vx"])[same].max())
+    dwz = float(np.abs(chain.wz[:, 0].cpu().numpy() - g["wz"])[same].max())
+    d_first = float(np.abs(chain.composed_first[0].cpu().numpy()
+                           - g["composed_first"]).max())
+    d_last = float(np.abs(chain.composed_last[0].cpu().numpy()
+                          - g["composed_last"]).max())
+    d_plan = float(np.abs(chain.plan_positions[:, 0].cpu().numpy()
+                          - g["plan_positions"]).max())
+    print(f"golden fused chain: states, plan_ok, plan counts and iterations "
+          f"equal JAX's; best index equal on {int(same.sum())}/{FUSED_TICKS} "
+          f"ticks, ties {ties}; max |dvx| {dvx!r} |dwz| {dwz!r} (equal "
+          f"indices); composed dGraph max diff tick 0 {d_first!r}, tick "
+          f"{FUSED_TICKS - 1} {d_last!r} m; plan positions max diff "
+          f"{d_plan!r} m")
+    check(max(dvx, dwz) <= 1e-5, f"fused vx/wz off JAX: {dvx} {dwz}")
+    check(max(d_first, d_last, d_plan) <= 1e-5,
+          f"fused composed dGraph / plan off JAX: {d_first} {d_last} "
+          f"{d_plan}")
+
+    # 11. kernels against plain on the fused tick's arguments, with a box
+    # in the robot's path so that some rollouts hit and some do not
+    box_scans, box_masks = scans_for(entry.config3_world([FUSED_CHECK_BOX]),
+                                     False)
+    recorder, calls = recorder_pair(FUSED_CHECK_TICKS)
+    n_check = max(FUSED_CHECK_TICKS) + 1
+    with critics_calling(recorder("swept_box_hits", ops.swept_box_hits),
+                         recorder("masked_min_distance",
+                                  ops.masked_min_distance)):
+        entry.run_fused_chain(c3, state0, box_scans[:n_check],
+                              box_masks[:n_check],
+                              *(x[:n_check] for x in poses))
+    torch.cuda.synchronize()
+    stats = check_kernels(kernels, calls, FUSED_CHECK_TICKS)
+
+    # 12. timing: CUDA events around each tick
+    def timed(n_chains):
+        per_tick, wall = [], []
+        for _ in range(n_chains):
+            events = []
+
+            def tick(*args):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = c3.tick(*args)
+                e1.record()
+                events.append((e0, e1))
+                return out
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(tick)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) / FUSED_TICKS * 1e3)
+            per_tick += [a.elapsed_time(b) for a, b in events]
+        return np.asarray(per_tick), np.asarray(wall)
+
+    timed(1)                                      # warm-up
+    ticks_ms, wall_ms = timed(FUSED_CHAINS)
+    with critics_calling(ops.swept_box_hits_plain,
+                         ops.masked_min_distance_plain):
+        plain_ms, _ = timed(2)
+    med = float(np.median(ticks_ms))
+    chain_medians = np.median(ticks_ms.reshape(FUSED_CHAINS, FUSED_TICKS), 1)
+    print(f"fused tick (1 robot, {lp.generator.n_samples_padded} samples, "
+          f"kernel path, n={ticks_ms.size}): median {med!r} ms, p95 "
+          f"{float(np.percentile(ticks_ms, 95))!r} ms, p99 "
+          f"{float(np.percentile(ticks_ms, 99))!r} ms, host wall per tick "
+          f"median {float(np.median(wall_ms))!r} ms; per-chain medians "
+          f"min {float(chain_medians.min())!r} max "
+          f"{float(chain_medians.max())!r} ms ({FUSED_CHAINS} chains); plain "
+          f"path median {float(np.median(plain_ms))!r} ms "
+          f"(n={plain_ms.size}); card {card}")
+
+    # time between stage boundaries, the tick's own stages with an event
+    # between each (host-bound stages include the device's wait for the
+    # host); the same calls as fused_tick
+    _, spec, ri_spec, params = tf.make_fused_tick(cfg)
+    stage_names = ("mark/clear", "composition+prepare", "relaxation",
+                   "extraction+interpolation", "local tick")
+    stage_events = []
+
+    def staged_tick(fmap, state, scan, mask, pos, quat, offset, goal, v, w):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        marking, scan_global = tf.fused_perceive(
+            spec, ri_spec, params, fmap, state, scan, mask, pos, quat, offset)
+        ev[1].record()
+        pre = tf.fused_prepare(cfg, fmap, state, marking, scan_global, pos,
+                               goal)
+        ev[2].record()
+        dist, bins_, iters_ = tf.fused_relax(cfg, fmap, pre)
+        ev[3].record()
+        res, stall = tf.fused_finish(cfg, fmap, pre, state, dist, bins_,
+                                     iters_)
+        plan = tf.interpolate_path_device(fmap.ground, res,
+                                          max_plan_len=lp.max_plan_len)
+        ev[4].record()
+        out = tf.fused_local(cfg, "differential_drive_simple", pre, res, plan,
+                             mask, pos, quat, v, w, stall)
+        ev[5].record()
+        stage_events.append(ev)
+        return out
+
+    staged = run(staged_tick)
+    check(torch.equal(staged.state, chain.state)
+          and torch.equal(staged.best_index, chain.best_index),
+          "the staged tick differs from fused_tick")
+    stage_events.clear()
+    for _ in range(3):
+        run(staged_tick)
+    torch.cuda.synchronize()
+    per_stage = np.asarray([[ev[i].elapsed_time(ev[i + 1]) for i in range(5)]
+                            for ev in stage_events])
+    print("fused stages, median ms per tick over "
+          f"{len(stage_events)} ticks (CUDA events between stages): "
+          + "; ".join(f"{n} {float(np.median(per_stage[:, i])):.3f}"
+                      for i, n in enumerate(stage_names))
+          + f"; relaxation iterations per tick "
+          f"{chain.wf_iters[:, 0].tolist()}")
+
+    # host syncs in one warm tick (tick 1 of the chain)
+    state1, _ = c3.tick(fm, state0, scans[0], masks[0],
+                        *(x[0] for x in poses[:2]), on_dev(c3.offset),
+                        on_dev(c3.goal)[None], *(x[0] for x in poses[2:]))
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _, out1 = c3.tick(fm, state1, scans[1], masks[1],
+                              *(x[1] for x in poses[:2]), on_dev(c3.offset),
+                              on_dev(c3.goal)[None],
+                              *(x[1] for x in poses[2:]))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    print(f"host syncs in tick 1: {len(syncs)} (relaxation "
+          f"{int(out1.wf_iters[0])} iterations)")
+
+    s = [state0, 0]
+
+    def step():                   # the chain's ticks 0, 1, ... in turn
+        t = s[1]
+        s[0], _ = c3.tick(fm, s[0], scans[t], masks[t],
+                          *(x[t] for x in poses[:2]), on_dev(c3.offset),
+                          on_dev(c3.goal)[None], *(x[t] for x in poses[2:]))
+        s[1] += 1
+    profile_ticks(step, FUSED_PROFILED_TICKS, kernels)
+    print(f"fused peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    return {name: dict(launches=launches[name], **stats[name])
+            for name in kernels}
 
 
 if __name__ == "__main__":

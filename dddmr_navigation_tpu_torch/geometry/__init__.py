@@ -8,4 +8,5 @@ from dddmr_navigation_tpu_torch.geometry.se3 import (
     yaw_from_quat,
     normalize_angle,
     slope_aware_quat,
+    quat_rotate_fma,
 )

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from dddmr_navigation_tpu_torch.rounding import fma
+
 
 def quat_multiply(q1, q2):
     """Hamilton product (tf2 ``q1*q2``: rotate by q2 first, then q1)."""
@@ -98,3 +100,22 @@ def slope_aware_quat(v):
     q_slope = quat_from_axis_angle(safe_right, ang)
     q_flat = quat_from_yaw(torch.atan2(vy, vx))
     return torch.where((vz != 0.0)[..., None], q_slope, q_flat)
+
+
+def quat_rotate_fma(q, v):
+    """:func:`quat_rotate` rounded as the JAX package's jitted quat_rotate
+    is on the CPU: v + w·t as one fused multiply-add, the cross products
+    as fma(a1, b2, -(a2·b1)). The perception stages voxelize rotated scan
+    points, so an ulp there can move a point into the next voxel; this
+    keeps the port's voxels the JAX package's."""
+    qv, qw = q[..., :3], q[..., 3:4]
+    qv = qv.expand(torch.broadcast_shapes(qv.shape, v.shape))
+    t = 2.0 * _cross_fma(qv, v)
+    return fma(qw, t, v) + _cross_fma(qv, t)
+
+
+def _cross_fma(a, b):
+    a0, a1, a2 = a.unbind(-1)
+    b0, b1, b2 = b.unbind(-1)
+    return torch.stack([fma(a1, b2, -(a2 * b1)), fma(a2, b0, -(a0 * b2)),
+                        fma(a0, b1, -(a1 * b0))], dim=-1)

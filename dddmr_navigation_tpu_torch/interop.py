@@ -1,43 +1,82 @@
 """Carrying state between the JAX package and the port, as numpy arrays.
 
-The local-planner slice has no learned parameters: plans, poses,
-velocities and obstacle clouds are its whole state. :func:`to_port` turns
-one of the JAX package's NamedTuples (``GlobalPlan``, ``FleetState``, ...)
-whose leaves were read out with ``np.asarray`` into the port's NamedTuple
-of the same field names, on a given device; :func:`to_numpy` turns port
-outputs back into numpy.
+:func:`to_port` turns one of the JAX package's NamedTuples or dataclasses
+(``GlobalPlan``, ``FleetState``, ``FusedMap``, ``FusedState``,
+``MarkingState``, ``MapContext``, ...) whose leaves were read out with
+``np.asarray`` into the port's class of the same field names, on a given
+device: nested NamedTuples and dataclasses field by field, by the port
+class's annotations. :func:`to_numpy` turns port outputs back into numpy.
 """
 from __future__ import annotations
+
+import dataclasses
+import typing
 
 import numpy as np
 import torch
 
+# Kept as they are; other integers become int64, floats f32.
+_KEPT = {np.dtype(np.bool_): torch.bool, np.dtype(np.uint8): torch.uint8,
+         np.dtype(np.int8): torch.int8, np.dtype(np.int16): torch.int16,
+         np.dtype(np.int32): torch.int32, np.dtype(np.int64): torch.int64}
+
 
 def tensor(x, device) -> torch.Tensor:
     """A copy of a numpy array (or array-like) as a tensor on ``device``:
-    floats as f32, integers as int64, bools as bool."""
+    bool, uint8, int8, int16, int32 and int64 keep their type (a uint8
+    voxel grid stays one byte a cell), other integers become int64 and
+    floats f32."""
     a = np.asarray(x)
-    if a.dtype == np.bool_:
-        dtype = torch.bool
-    elif np.issubdtype(a.dtype, np.integer):
-        dtype = torch.int64
-    else:
-        dtype = torch.float32
+    dtype = _KEPT.get(a.dtype)
+    if dtype is None:
+        dtype = (torch.int64 if np.issubdtype(a.dtype, np.integer)
+                 else torch.float32)
     return torch.tensor(a, dtype=dtype, device=device)
 
 
+def _struct_class(hint):
+    """The NamedTuple or dataclass in a field annotation (unwrapping
+    Optional), or None."""
+    for h in (hint, *typing.get_args(hint)):
+        if isinstance(h, type) and (hasattr(h, "_fields")
+                                    or dataclasses.is_dataclass(h)):
+            return h
+    return None
+
+
 def to_port(src, cls, device):
-    """``cls(**{f: tensor(src.f)})`` for each field of the port NamedTuple
-    ``cls``; ``src`` is any object with those attributes."""
-    return cls(**{f: tensor(getattr(src, f), device) for f in cls._fields})
+    """``cls`` built field by field from the same-named attributes of
+    ``src``: nested NamedTuples and dataclasses recursively, Python scalar
+    fields (a dataclass's static metadata) as they are, None as None,
+    arrays through :func:`tensor`."""
+    hints = typing.get_type_hints(cls)
+    names = (cls._fields if hasattr(cls, "_fields")
+             else [f.name for f in dataclasses.fields(cls)])
+    out = {}
+    for name in names:
+        value, hint = getattr(src, name), hints.get(name)
+        sub = _struct_class(hint)
+        if value is None:
+            out[name] = None
+        elif sub is not None:
+            out[name] = to_port(value, sub, device)
+        elif hint in (int, float, bool):
+            out[name] = hint(value)
+        else:
+            out[name] = tensor(value, device)
+    return cls(**out)
 
 
 def to_numpy(x):
-    """Tensors, and NamedTuples, tuples, lists and dicts of them, as numpy."""
+    """Tensors, and NamedTuples, dataclasses, tuples, lists and dicts of
+    them, as numpy."""
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     if isinstance(x, tuple) and hasattr(x, "_fields"):
         return type(x)(*(to_numpy(v) for v in x))
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return type(x)(**{f.name: to_numpy(getattr(x, f.name))
+                          for f in dataclasses.fields(x)})
     if isinstance(x, (tuple, list)):
         return type(x)(to_numpy(v) for v in x)
     if isinstance(x, dict):

@@ -1,0 +1,156 @@
+"""Global planner: goal snapping, wavefront solve and extraction, batched
+over robots on one shared graph.
+
+Counterpart of ``dddmr_navigation_tpu/planning/global_/planner.py``
+(`GlobalPlanner::makeROSPlan`, `global_planner.cpp:512-544`, and
+`getStartGoalID`, `:393-473`).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from dddmr_navigation_tpu.config import GlobalPlannerConfig
+from dddmr_navigation_tpu_torch import not_ported
+from dddmr_navigation_tpu_torch.rounding import fma_norm
+from dddmr_navigation_tpu_torch.planning.global_.los import long_edge_los_mask
+from dddmr_navigation_tpu_torch.planning.global_.wavefront import (
+    node_costs, wavefront_distances, extract_path,
+    wavefront_distances_turning, extract_path_turning)
+
+
+class GlobalPathResult(NamedTuple):
+    node_ids: torch.Tensor      # (B, max_path_len)
+    node_valid: torch.Tensor    # (B, max_path_len) bool
+    length: torch.Tensor        # (B,)
+    ok: torch.Tensor            # (B,) bool
+    dist_to_goal: torch.Tensor  # (B, G) the reusable distance field
+    dist_carry: torch.Tensor    # raw field, (B, G) or (B, G, bins), for warm starts
+    goal_idx: torch.Tensor      # (B,) snapped goal node (warm-start key)
+    iters: torch.Tensor         # (B,) int32 relaxation iterations run
+
+
+def snap_to_ground(ground, ground_valid, pos, radius: float = 0.5):
+    """Nearest ground node within ``radius`` of each pos (B, 3)
+    (`getStartGoalID`). Returns (index (B,), ok (B,))."""
+    d = fma_norm(ground - pos[:, None, :])
+    d = torch.where(ground_valid, d, torch.inf)
+    i = torch.argmin(d, dim=1)
+    return i, d.gather(1, i[:, None])[:, 0] <= radius
+
+
+class PlanPrep(NamedTuple):
+    """Per-robot pre-relaxation state (`plan_prepare` → relax →
+    `plan_finish`)."""
+    start_idx: torch.Tensor    # (B,)
+    goal_idx: torch.Tensor     # (B,)
+    sg_ok: torch.Tensor        # (B,) both snaps succeeded
+    graph_valid: torch.Tensor  # (B, G, K) after the LOS gate
+    enter: torch.Tensor        # (B, G) node entry costs (inf = lethal)
+    warm_dist: object          # warm field or None
+
+
+def plan_prepare(cfg: GlobalPlannerConfig, graph_idx, graph_dist, graph_valid,
+                 ground, ground_valid, dgraph, node_weight,
+                 start_pos, goal_pos, *, inscribed_radius: float,
+                 inflation_descending_rate: float,
+                 lethal_pts=None, lethal_valid=None,
+                 warm_dist=None, warm_goal_idx=None) -> PlanPrep:
+    """Snap start and goal, LOS-gate long edges, compute entry costs, and
+    drop the warm field of a robot whose snapped goal changed."""
+    b = dgraph.shape[0]
+    start_idx, s_ok = snap_to_ground(ground, ground_valid, start_pos)
+    goal_idx, g_ok = snap_to_ground(ground, ground_valid, goal_pos)
+
+    if warm_dist is not None and warm_goal_idx is not None:
+        same = (goal_idx == warm_goal_idx).view(
+            (b,) + (1,) * (warm_dist.dim() - 1))
+        warm_dist = torch.where(same, warm_dist, torch.inf)
+
+    graph_valid = graph_valid.expand(b, *graph_idx.shape)
+    if lethal_pts is not None and cfg.max_long_edges > 0:
+        graph_valid = graph_valid & long_edge_los_mask(
+            graph_idx, graph_dist, graph_valid, ground, lethal_pts,
+            lethal_valid, inscribed_radius=inscribed_radius,
+            max_long_edges=cfg.max_long_edges, samples=cfg.los_samples)
+
+    enter = node_costs(dgraph, node_weight,
+                       inscribed_radius=inscribed_radius,
+                       inflation_descending_rate=inflation_descending_rate)
+    return PlanPrep(start_idx=start_idx, goal_idx=goal_idx, sg_ok=s_ok & g_ok,
+                    graph_valid=graph_valid, enter=enter, warm_dist=warm_dist)
+
+
+def relax(cfg: GlobalPlannerConfig, graph_idx, graph_dist, avg_intensity,
+          ground, prep: PlanPrep, max_iters: int, az=None, bins=None):
+    """The wavefront relaxation ``plan_on_graph`` runs between
+    :func:`plan_prepare` and :func:`plan_finish`. Returns (field, edge bins
+    or None, iters (B,))."""
+    if cfg.turning_weight > 0.0:
+        return wavefront_distances_turning(
+            graph_idx, graph_dist, prep.graph_valid, prep.enter,
+            avg_intensity, prep.goal_idx, ground, cfg.turning_weight,
+            n_dir_bins=cfg.turning_dir_bins, max_iters=max_iters,
+            dist0=prep.warm_dist, az=az, bin_of_edge=bins)
+    wf = wavefront_distances(graph_idx, graph_dist, prep.graph_valid,
+                             prep.enter, avg_intensity, prep.goal_idx,
+                             max_iters=max_iters, dist0=prep.warm_dist)
+    return wf.dist, None, wf.iters
+
+
+def plan_finish(cfg: GlobalPlannerConfig, graph_idx, graph_dist, ground,
+                prep: PlanPrep, dist_relaxed, iters, *,
+                turn_pen=None, wf_bins=None,
+                stall_reset=None) -> GlobalPathResult:
+    """Extraction and result assembly after the relaxation. A robot whose
+    relaxation reached ``max_relax_iters`` did not converge: its carried
+    field is reset to +inf, so the next tick pays one cold solve."""
+    if cfg.turning_weight > 0.0:
+        ids, valid, length, p_ok = extract_path_turning(
+            graph_idx, graph_dist, prep.graph_valid, prep.enter,
+            dist_relaxed, wf_bins, prep.start_idx, prep.goal_idx, ground,
+            cfg.turning_weight, max_len=cfg.max_path_len, turn_pen=turn_pen)
+        dist_to_goal = dist_relaxed.amin(dim=2)
+    else:
+        ids, valid, length, p_ok = extract_path(
+            graph_idx, graph_dist, prep.graph_valid, prep.enter,
+            dist_relaxed, prep.start_idx, prep.goal_idx,
+            max_len=cfg.max_path_len)
+        dist_to_goal = dist_relaxed
+    ok = prep.sg_ok & p_ok
+    if stall_reset is None:
+        stall_reset = iters >= cfg.max_relax_iters
+    expand = (slice(None),) + (None,) * (dist_relaxed.dim() - 1)
+    dist_carry = torch.where(stall_reset[expand], torch.inf, dist_relaxed)
+    return GlobalPathResult(node_ids=ids, node_valid=valid & ok[:, None],
+                            length=torch.where(ok, length, 0), ok=ok,
+                            dist_to_goal=dist_to_goal, dist_carry=dist_carry,
+                            goal_idx=prep.goal_idx, iters=iters)
+
+
+def plan_on_graph(cfg: GlobalPlannerConfig, graph_idx, graph_dist, graph_valid,
+                  ground, ground_valid, dgraph, node_weight, avg_intensity,
+                  start_pos, goal_pos, *, inscribed_radius: float,
+                  inflation_descending_rate: float,
+                  lethal_pts=None, lethal_valid=None,
+                  warm_dist=None, warm_goal_idx=None,
+                  turn_pen=None, wf_az=None, wf_bins=None) -> GlobalPathResult:
+    """Snap → relax → extract for every robot. ``cfg.max_long_edges == 0``
+    skips the LOS stage."""
+    prep = plan_prepare(
+        cfg, graph_idx, graph_dist, graph_valid, ground, ground_valid,
+        dgraph, node_weight, start_pos, goal_pos,
+        inscribed_radius=inscribed_radius,
+        inflation_descending_rate=inflation_descending_rate,
+        lethal_pts=lethal_pts, lethal_valid=lethal_valid,
+        warm_dist=warm_dist, warm_goal_idx=warm_goal_idx)
+    dist, bins, iters = relax(cfg, graph_idx, graph_dist, avg_intensity,
+                              ground, prep, cfg.max_relax_iters, wf_az,
+                              wf_bins)
+    return plan_finish(cfg, graph_idx, graph_dist, ground, prep, dist, iters,
+                       turn_pen=turn_pen, wf_bins=bins)
+
+
+fleet_plan_finish = not_ported(
+    "fleet_plan_finish", "the fleet's node-major extraction")

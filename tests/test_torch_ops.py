@@ -154,3 +154,58 @@ def test_masked_min_distance_kernel_matches_plain(cuda_device):
     assert masked_min_distance.launches == before + 1
     # the same operation order, no FMA, correctly rounded sqrt: bit equal
     assert torch.equal(got, masked_min_distance_plain(*args))
+
+
+# The fused config-3 tick's shapes: one robot, 64×128 = 8,192 samples of
+# 40 steps, near-K 128 obstacles; the stick-path call's 8,192·40 = 327,680
+# queries and the toward-plan call's 8,192 against a 128-pose prune plan.
+FUSED_S, FUSED_N, FUSED_K, FUSED_P = 8192, 40, 128, 128
+
+
+def fused_box_inputs(seed):
+    """Random boxes and obstacles at the fused shapes, spread so that some
+    samples hit and others do not (no face margin: kernel and plain
+    version round the same way, so they agree exactly at any distance)."""
+    rng = np.random.default_rng(seed)
+    axes = np.linalg.qr(rng.normal(size=(1, FUSED_S, FUSED_N, 3, 3)))[0]
+    axes = np.ascontiguousarray(np.swapaxes(axes, -1, -2), np.float32)
+    centers = rng.uniform(-3.0, 3.0, size=(1, FUSED_S, FUSED_N, 3))
+    projc = np.einsum("bsnkj,bsnj->bsnk", axes.astype(np.float64),
+                      centers).astype(np.float32)
+    step_valid = rng.uniform(size=(1, FUSED_S, FUSED_N)) < 0.8
+    obs = rng.uniform(-6.0, 6.0, size=(1, FUSED_K, 3)).astype(np.float32)
+    obs_valid = rng.uniform(size=(1, FUSED_K)) < 0.9
+    return axes, projc, step_valid, obs, obs_valid
+
+
+@pytest.mark.cuda
+def test_swept_box_hits_kernel_matches_plain_at_fused_shapes(cuda_device):
+    args = [torch.as_tensor(a, device=cuda_device)
+            for a in fused_box_inputs(2)]
+    before = swept_box_hits.launches
+    got = swept_box_hits(*args, HALF)
+    torch.cuda.synchronize()
+    assert swept_box_hits.launches == before + 1
+    want = swept_box_hits_plain(*args, HALF)
+    assert got.shape == (1, FUSED_S)
+    assert 0 < int(want.sum()) < want.numel()  # both outcomes occur
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [FUSED_S * FUSED_N, FUSED_S])
+def test_masked_min_distance_kernel_matches_plain_at_fused_shapes(
+        cuda_device, q):
+    rng = np.random.default_rng(q)
+    queries = (rng.uniform(-3, 3, size=(1, q, 3)) + 12.0).astype(np.float32)
+    points = (rng.uniform(-3, 3, size=(1, FUSED_P, 3)) + 12.0).astype(
+        np.float32)
+    q_mask = rng.uniform(size=(1, q)) < 0.8
+    p_mask = np.arange(FUSED_P)[None] < 100       # a partly filled plan
+    args = [torch.as_tensor(a, device=cuda_device)
+            for a in (queries, q_mask, points, p_mask)]
+    before = masked_min_distance.launches
+    got = masked_min_distance(*args)
+    torch.cuda.synchronize()
+    assert masked_min_distance.launches == before + 1
+    assert torch.equal(got, masked_min_distance_plain(*args))

@@ -472,8 +472,24 @@ def test_port_never_imports_jax():
             "import dddmr_navigation_tpu_torch.interop\n"
             "import dddmr_navigation_tpu_torch.ops.build\n"
             "import dddmr_navigation_tpu_torch.parallel.fleet\n"
+            "import dddmr_navigation_tpu_torch.control.fused\n"
+            "import dddmr_navigation_tpu_torch.perception.marking\n"
+            "import dddmr_navigation_tpu_torch.perception.layers\n"
+            "import dddmr_navigation_tpu_torch.planning.global_.planner\n"
+            "import dddmr_navigation_tpu_torch.ops.compaction\n"
+            "import dddmr_navigation_tpu_torch.shared\n"
             "fn, args = dddmr_navigation_tpu_torch.entry.entry('cpu')\n"
             "fn(*args)\n"
+            "from dddmr_navigation_tpu_torch import entry as e\n"
+            "cfg = e.config3_config(3, 3, 8, 32, 16, 8, 64, 128, 16)\n"
+            "c3 = e.config3_inputs(cfg, resolution=1.0)\n"
+            "pts, m = e.config3_scan(cfg, e.config3_world(), c3.robot, 0.0)\n"
+            "import torch\n"
+            "r = torch.as_tensor(c3.robot)[None]\n"
+            "c3.tick(c3.fmap, e.config3_state(c3), torch.as_tensor(pts)[None],\n"
+            "        torch.as_tensor(m)[None], r, torch.tensor([[0., 0, 0, 1]]),\n"
+            "        torch.as_tensor(c3.offset), torch.as_tensor(c3.goal)[None],\n"
+            "        torch.zeros(1), torch.zeros(1))\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
             "assert not bad, bad\n")
