@@ -6,13 +6,20 @@ card, at the full width of the 64-robot headline fleet.
 In order, and any failed check raises (exit code 1):
   1. requires CUDA;
   2. builds the hand-written kernels from ``dddmr_navigation_tpu_torch/csrc``
-     and prints the build time and ptxas's report;
-  3. holds each kernel against its plain PyTorch version on the card, on
-     the inputs the headline chain gives it at ticks 0, 25 and 49: hits
-     equal exactly, and the plain hits must hold both outcomes so that the
-     comparison can fail; distances within rtol 1e-6 (expected bit equal:
-     the same operation order, no FMA); prints each one's error and time,
-     kernel and plain, from CUDA events;
+     (one nvcc per source, in parallel) and prints the build time and
+     ptxas's report; then holds each kernel, and its first kernel (``v1``),
+     against the plain PyTorch version, bit for bit, on the adversarial
+     inputs of ``ops/adversarial.py`` (seed ``ADVERSARIAL_SEED``);
+  3. holds each kernel and its v1 against its plain PyTorch version on the
+     card, on the inputs the headline chain gives it at ticks 0, 25 and
+     49: hits and distances equal bit for bit, and the plain hits must
+     hold both outcomes so that the comparison can fail; per tick, prints
+     the plain version's time, the bound (the least time the card could
+     take for this tick's calls on these inputs, and whether operations or
+     bytes set it), the share of pairs that survive the kernel's cull
+     (from its plain mirror), and the new kernel's and v1's time in turns
+     (v1, new, new, v1) by CUDA events and by the profiler's device time;
+     the redesign must be no slower than v1 in device time;
   4. runs the 64-robot, 50-tick chain on the kernel path and on the plain
      path: per-tick state codes, best indices and found counts must be
      equal, and the launch counters must show each kernel launched as
@@ -30,7 +37,8 @@ Then the fused phase, bench config 3 (``bench.py::bench_config3``) at
 full width: the multi-level map (3,116 ground nodes, 16 direction bins), a
 96×96×44 perception window, a 16×1000 lidar, 64×128 = 8,192 samples of 40
 steps, one robot; any failed check raises:
-  7. builds the map and the robot's state from the shared numpy map functions;
+  7. builds the map and the robot's state from the port's numpy map
+     functions;
   8. holds the map's direction bins against the JAX golden file
      (``dddmr_navigation_tpu_torch/testdata/config3_golden.npz``) exactly,
      its edge azimuths and turning table within 1e-6;
@@ -47,10 +55,10 @@ steps, one robot; any failed check raises:
      1e-5 of JAX's cost), the composed dGraph and plan positions within
      1e-5 m; one ``swept_box_hits`` and two ``masked_min_distance``
      launches per tick;
- 11. each kernel against its plain version on the fused tick's arguments at
-     ticks 0, 10 and 19 of the chain run with one more box in the robot's
-     path (config 3's own box is never in a rollout's way), so that the
-     plain hits hold both outcomes;
+ 11. as step 3, on the fused tick's arguments at ticks 0, 10 and 19 of
+     the chain run with one more box in the robot's path (config 3's own
+     box is never in a rollout's way), so that the plain hits hold both
+     outcomes;
  12. times the chain: tick median, p95 and p99 from CUDA events over
      ``FUSED_CHAINS`` chains with the spread of the per-chain medians, the
      time between stage boundaries (mark/clear; composition and prepare;
@@ -58,11 +66,15 @@ steps, one robot; any failed check raises:
      syncs per tick, the plain path's median, a profile, and peak memory.
 
 The line before the last is one JSON object with each kernel's route,
-source, launches, error and time: ``launches`` counts both phases' chains
-(each counter set to 0 just before its chain and read just after),
-``max_abs_err`` is the largest over both phases' checks, ``ms`` and
-``plain_ms`` add a headline tick's and a fused tick's calls, and
-``paths`` gives each phase's own numbers. The last line is
+source, launches, error, times and bound: ``launches`` counts both
+phases' chains (each counter set to 0 just before its chain and read just
+after), ``max_abs_err`` is the largest over every check, ``ms``,
+``plain_ms``, ``v1_ms``, ``bound_us`` (``bound_ms``), ``device_us_per_tick``
+and ``v1_device_us_per_tick`` add a headline tick's and a fused tick's
+calls, ``share_of_bound`` is bound over device time, ``library_ms`` is
+null (no single PyTorch call computes either function), and ``paths``
+gives each phase's own numbers, with ``full_bound_us``, the bound counted
+over every row and obstacle of the shapes, and ``cull_keeps``. The last line is
 ``{"ok": true, "device": {...}}``. TF32 is off and matmuls run at full
 f32 ("highest"): the fused tick's distance field and cluster sums are
 matmuls, as the JAX package runs them at Precision.HIGHEST.
@@ -83,6 +95,13 @@ KERNEL_REPS = 50
 PROFILED_TICKS = 5
 CHECK_TICKS = (0, TICKS // 2, TICKS - 1)   # kernel vs plain at these ticks
 PER_TICK = {"swept_box_hits": 1, "masked_min_distance": 2}   # launches
+TURNS = ("v1", "new", "new", "v1")   # kernel comparisons, in this order
+PROFILE_REPS = 10                    # repetitions of a tick's calls profiled
+ADVERSARIAL_SEED = 3
+# Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): f32 outside
+# the tensor cores, and HBM3 bandwidth.
+PEAK_F32_FLOPS = 67.0e12
+PEAK_BYTES = 3.35e12
 
 FUSED_TICKS = 20                  # the golden chain's length
 FUSED_CHAINS = 6                  # timed chains of the fused phase
@@ -147,28 +166,110 @@ def recorder_pair(check_ticks):
     return recorder, calls
 
 
+def call_all(fn, calls):
+    for _, args in calls:
+        fn(*args)
+
+
+def device_us(fn, calls, key, reps):
+    """Device µs of the kernels whose name holds ``key`` over ``reps``
+    runs of ``calls``, from the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call_all(fn, calls)
+        torch.cuda.synchronize()
+    t = sum(ev.self_device_time_total for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and key in ev.key)
+    check(t > 0, f"the profiler recorded no device time for {key}")
+    return t
+
+
+def bound_us(name, args):
+    """The least time the card could take for one call on these inputs,
+    in µs, and what sets it: the larger of the operations this call's data
+    needs over the f32 peak (21 flops a point-box test of a valid step
+    against a valid obstacle; 8 a distance of an unmasked query to a valid
+    point) and its bytes over the memory rate (each input read once, the
+    step axes and centers and the queries of valid rows only, each output
+    written once)."""
+    if name == "swept_box_hits":
+        axes, projc, step_valid, obs, obs_valid, _half = args
+        rows = step_valid.sum(dim=(1, 2)).double()
+        ops = 21.0 * float((rows * obs_valid.sum(1).double()).sum())
+        nbytes = (step_valid.numel() + 48.0 * float(rows.sum())
+                  + 13.0 * obs_valid.numel() + step_valid.shape[0]
+                  * step_valid.shape[1])
+    else:
+        queries, q_mask, points, p_mask = args
+        nq = q_mask.sum(1).double()
+        ops = 8.0 * float((nq * p_mask.sum(1).double()).sum())
+        nbytes = (q_mask.numel() + 12.0 * float(nq.sum()) + p_mask.numel()
+                  + 12.0 * float(p_mask.sum()) + 4.0 * q_mask.numel())
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e6, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def full_bound_us(name, args):
+    """The same bound counted over every row and obstacle (every query and
+    point) of the call's shapes, valid or not: the figure the redesign's
+    target was set against."""
+    import torch
+    masks = (2, 4) if name == "swept_box_hits" else (1, 3)
+    return bound_us(name, [torch.ones_like(a) if i in masks else a
+                           for i, a in enumerate(args)])[0]
+
+
+def cull_share(name, args):
+    """The share of (row, obstacle) pairs that survive the collision
+    kernel's cull, or of (robot, point) pairs the distance kernel computes,
+    from their plain mirrors; for the distance kernel also checks that the
+    mirror's result equals the plain version."""
+    import torch
+    from dddmr_navigation_tpu_torch.ops.collision import (
+        cull_survivor_fraction)
+    from dddmr_navigation_tpu_torch.ops.distance_field import (
+        masked_min_distance_compacted_plain, masked_min_distance_plain)
+    if name == "swept_box_hits":
+        return cull_survivor_fraction(*args)
+    staged, out = masked_min_distance_compacted_plain(*args)
+    check(torch.equal(out, masked_min_distance_plain(*args)),
+          "the distance kernel's compacted point set changed a distance")
+    return float(staged.sum()) / staged.numel() / args[2].shape[1]
+
+
 def check_kernels(kernels, calls, check_ticks):
-    """Each kernel against its plain version on the recorded arguments:
-    hits equal exactly, and the plain hits hold both outcomes over the
-    checked ticks; distances within rtol 1e-6. Returns {name:
-    dict(max_abs_err, ms, plain_ms)}, ms per tick (all of a tick's calls),
-    averaged over ``check_ticks``."""
+    """Each kernel, and its first kernel (v1), against its plain version on
+    the recorded arguments, bit for bit (hits and distances), and the plain
+    hits must hold both outcomes over the checked ticks. Then per tick
+    (all of a tick's calls, averaged over ``check_ticks``): the plain
+    version's ms; the new kernel's and v1's ms from CUDA events and device
+    µs from the profiler, in turns (TURNS); the bound; the cull's survivor
+    share. Returns {name: dict}."""
     import torch
     check(all(len(calls[k]) == PER_TICK[k] * len(check_ticks)
               for k in calls),
           f"unexpected kernel calls per tick: "
           f"{ {k: len(v) for k, v in calls.items()} }")
+    n_ticks = len(check_ticks)
     stats = {}
     for name, k in kernels.items():
-        st = stats[name] = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
+        st = stats[name] = dict(max_abs_err=0.0, plain_ms=0.0, bound_us=0.0)
         hits = total = 0
+        bounds, culls = [], []
         for t, args in calls[name]:
-            got = k["kernel"](*args)
+            got, v1 = k["kernel"](*args), k["v1"](*args)
             want = k["plain"](*args)
             torch.cuda.synchronize()
             check(got.shape == want.shape and got.dtype == want.dtype,
                   f"{name}: {got.shape}/{got.dtype} vs plain "
                   f"{want.shape}/{want.dtype}")
+            check(torch.equal(v1, want), f"{name} v1 tick {t}: differs from "
+                  f"plain")
             if got.dtype == torch.bool:
                 err = float((got != want).sum())
                 check(err == 0, f"{name} tick {t}: {int(err)} hits differ "
@@ -180,25 +281,90 @@ def check_kernels(kernels, calls, check_ticks):
                 check(bool((want < 1e6).any()),
                       f"{name} tick {t}: every plain distance is masked")
                 err = float((got - want).abs().max())
-                rel = ((got - want).abs()
-                       / want.abs().clamp_min(1e-30)).max().item()
-                check(rel <= 1e-6, f"{name} tick {t}: rel err {rel} > 1e-6")
+                check(torch.equal(got, want), f"{name} tick {t}: distances "
+                      f"differ from plain (max abs {err!r})")
                 what = f"{int((want < 1e6).sum())}/{want.numel()} unmasked"
-            ms = cuda_ms(lambda: k["kernel"](*args), KERNEL_REPS)
             plain_ms = cuda_ms(lambda: k["plain"](*args), KERNEL_REPS)
+            b_us, b_by = bound_us(name, args)
+            st["full_bound_us"] = (st.get("full_bound_us", 0.0)
+                                   + full_bound_us(name, args) / n_ticks)
+            cull = cull_share(name, args)
+            bounds.append((b_us, b_by))
+            culls.append(cull)
             shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
-            print(f"{name} tick {t} {shapes} ({what}): max_abs_err {err!r} "
-                  f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+            print(f"{name} tick {t} {shapes} ({what}): equal to plain, v1 "
+                  f"equal to plain; plain {plain_ms:.4f} ms; bound "
+                  f"{b_us:.2f} us ({b_by}); cull keeps {cull:.4f}")
             st["max_abs_err"] = max(st["max_abs_err"], err)
-            st["ms"] += ms / len(check_ticks)
-            st["plain_ms"] += plain_ms / len(check_ticks)
+            st["plain_ms"] += plain_ms / n_ticks
+            st["bound_us"] += b_us / n_ticks
+        st["bound_by"] = max(bounds)[1]       # the largest tick's
+        st["cull_keeps"] = sum(culls) / len(culls)
         if name == "swept_box_hits":
             # both outcomes occur, so a kernel that never (or always) hits
             # disagrees with the plain version above
             check(0 < hits < total, f"{name}: the plain version gives "
                   f"{hits}/{total} hits at ticks {check_ticks}; the "
                   f"comparison could not fail")
+        # new kernel and v1 in turns: CUDA events, then the profiler
+        fns = {"new": (k["kernel"], f"{name}_kernel"),
+               "v1": (k["v1"], f"{name}_v1_kernel")}
+        ms = {"new": [], "v1": []}
+        dev = {"new": [], "v1": []}
+        for turn in TURNS:
+            fn, key = fns[turn]
+            ms[turn].append(cuda_ms(lambda: call_all(fn, calls[name]),
+                                    KERNEL_REPS) / n_ticks)
+            dev[turn].append(device_us(fn, calls[name], key, PROFILE_REPS)
+                             / (PROFILE_REPS * n_ticks))
+        st["ms"] = sum(ms["new"]) / 2
+        st["v1_ms"] = sum(ms["v1"]) / 2
+        st["device_us_per_tick"] = sum(dev["new"]) / 2
+        st["v1_device_us_per_tick"] = sum(dev["v1"]) / 2
+        st["share_of_bound"] = st["bound_us"] / st["device_us_per_tick"]
+        print(f"{name} per tick ({PER_TICK[name]} launches): turns "
+              f"{'/'.join(TURNS)}: CUDA events "
+              + "/".join(f"{m:.4f}" for m in (ms["v1"][0], ms["new"][0],
+                                              ms["new"][1], ms["v1"][1]))
+              + " ms; device "
+              + "/".join(f"{d:.2f}" for d in (dev["v1"][0], dev["new"][0],
+                                              dev["new"][1], dev["v1"][1]))
+              + f" us; bound {st['bound_us']:.2f} us ({st['bound_by']}); "
+              f"share of bound {st['share_of_bound']!r}; cull keeps "
+              f"{st['cull_keeps']:.4f}")
+        check(st["device_us_per_tick"] <= st["v1_device_us_per_tick"],
+              f"{name}: the redesign ({st['device_us_per_tick']:.2f} us/tick)"
+              f" is slower than v1 ({st['v1_device_us_per_tick']:.2f} "
+              f"us/tick)")
     return stats
+
+
+def adversarial_checks(torch, dev, kernels):
+    """Each kernel and its v1 against the plain version on the adversarial
+    inputs of ``ops/adversarial.py`` (faces, corners, the cull's sphere
+    radius ± its margin, ±1 ulp around minima, all-invalid sets, 100 m
+    coordinates), bit for bit."""
+    from dddmr_navigation_tpu_torch.ops import adversarial
+    box = [torch.as_tensor(a, device=dev)
+           for a in adversarial.box_inputs(ADVERSARIAL_SEED)]
+    sets = {"swept_box_hits": [(*box, adversarial.HALF)],
+            "masked_min_distance": [
+                [torch.as_tensor(a, device=dev)
+                 for a in adversarial.dist_inputs(ADVERSARIAL_SEED, q=q)]
+                for q in (1000, 40000)]}     # the narrow and wide variants
+    for name, k in kernels.items():
+        for args in sets[name]:
+            got, v1 = k["kernel"](*args), k["v1"](*args)
+            want = k["plain"](*args)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want) and torch.equal(v1, want),
+                  f"{name}: differs from plain on adversarial inputs")
+            if name == "swept_box_hits":
+                check(0 < int(want.sum()) < want.numel(),
+                      "adversarial hits hold one outcome only")
+            shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
+            print(f"adversarial {name} {shapes}: kernel and v1 equal to "
+                  f"plain; cull keeps {cull_share(name, args):.4f}")
 
 
 def reset_launches(ops):
@@ -286,14 +452,17 @@ def main():
     kernels = {
         "swept_box_hits": dict(
             kernel=ops.swept_box_hits, plain=ops.swept_box_hits_plain,
+            v1=ops.swept_box_hits_v1,
             source="dddmr_navigation_tpu_torch/csrc/swept_box_hits.cu",
             replaces="dddmr_navigation_tpu/ops/collision.py:122"),
         "masked_min_distance": dict(
             kernel=ops.masked_min_distance,
             plain=ops.masked_min_distance_plain,
+            v1=ops.masked_min_distance_v1,
             source="dddmr_navigation_tpu_torch/csrc/masked_min_distance.cu",
             replaces="dddmr_navigation_tpu/ops/distance_field.py:91"),
     }
+    adversarial_checks(torch, dev, kernels)
     paths = {"headline": headline_phase(np, torch, dev, entry, ops, kernels,
                                         card),
              "fused": fused_phase(np, torch, dev, entry, ops, kernels, card)}
@@ -302,13 +471,26 @@ def main():
     out = []
     for name, k in kernels.items():
         per = {p: paths[p][name] for p in paths}
+
+        def total(key):
+            return sum(v[key] for v in per.values())
+        bound = total("bound_us")
+        device = total("device_us_per_tick")
         out.append({
             "name": name, "route": "cuda", "source": k["source"],
             "replaces": k["replaces"],
-            "launches": sum(v["launches"] for v in per.values()),
+            "launches": total("launches"),
             "max_abs_err": max(v["max_abs_err"] for v in per.values()),
-            "ms": sum(v["ms"] for v in per.values()),
-            "plain_ms": sum(v["plain_ms"] for v in per.values()),
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": bound / 1e3,
+            "bound_by": max((v["bound_us"], v["bound_by"])
+                            for v in per.values())[1],
+            "library_ms": None,     # no single PyTorch call computes it
+            "bound_us": bound, "device_us_per_tick": device,
+            "share_of_bound": bound / device,
+            "v1_device_us_per_tick": total("v1_device_us_per_tick"),
+            "v1_ms": total("v1_ms"),
+            "launches_per_tick": PER_TICK[name],
             "paths": per})
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
@@ -318,7 +500,7 @@ def main():
 
 def headline_phase(np, torch, dev, entry, ops, kernels, card):
     """Steps 3-6: the 64-robot headline chain. Returns {kernel name:
-    dict(launches, max_abs_err, ms, plain_ms)}."""
+    dict(launches, and check_kernels' numbers)}."""
     cfg = entry.headline_config()
     plans, state, obstacles, obs_valid = entry.headline_inputs(
         cfg, ROBOTS, dev)
@@ -443,7 +625,7 @@ def headline_phase(np, torch, dev, entry, ops, kernels, card):
 
 def fused_phase(np, torch, dev, entry, ops, kernels, card):
     """Steps 7-12: bench config 3's fused tick at full width. Returns
-    {kernel name: dict(launches, max_abs_err, ms, plain_ms)}."""
+    {kernel name: dict(launches, and check_kernels' numbers)}."""
     from dddmr_navigation_tpu_torch.control import fused as tf
     from dddmr_navigation_tpu_torch.planning.global_ import wavefront as tw
 

@@ -23,7 +23,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from dddmr_navigation_tpu.config import NavigationConfig
+from dddmr_navigation_tpu_torch.config import NavigationConfig
 from dddmr_navigation_tpu_torch.geometry import (
     quat_rotate_fma, slope_aware_quat)
 from dddmr_navigation_tpu_torch import not_ported
@@ -44,7 +44,7 @@ from dddmr_navigation_tpu_torch.planning.global_.wavefront import (
     edge_azimuth, edge_bins, turning_penalty_table)
 from dddmr_navigation_tpu_torch.planning.local.planner import (
     GlobalPlan, compute_velocity_command)
-from dddmr_navigation_tpu_torch.shared import build_ground_graph
+from dddmr_navigation_tpu_torch.planning.global_.graph import build_ground_graph
 
 
 class FusedMap(NamedTuple):
@@ -107,7 +107,7 @@ def build_fused_map(cfg: NavigationConfig, ground: np.ndarray,
                     static_dgraph: Optional[np.ndarray] = None,
                     intensity: Optional[np.ndarray] = None,
                     no_entry_zones=None, speed_zones=None,
-                    device="cpu") -> FusedMap:
+                    device="cuda") -> FusedMap:
     """The kNN ground graph, map context and turning tables of one map
     (`GlobalPlannerRuntime`, `global_planner.cpp:156-176`)."""
     if no_entry_zones is not None or speed_zones is not None:

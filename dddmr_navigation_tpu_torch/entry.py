@@ -20,14 +20,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from dddmr_navigation_tpu.config import (
+from dddmr_navigation_tpu_torch.config import (
     DDSimpleGeneratorConfig, GlobalPlannerConfig, LocalPlannerConfig,
     NavigationConfig, PerceptionConfig, SpinningLidarConfig)
-from dddmr_navigation_tpu.io.maps import multi_level_map
+from dddmr_navigation_tpu_torch.io.maps import multi_level_map
 from dddmr_navigation_tpu_torch.control.fused import (
     build_fused_map, init_fused_state, make_fused_tick)
 from dddmr_navigation_tpu_torch.geometry import quat_from_yaw
-from dddmr_navigation_tpu_torch.shared import compute_node_weights, lidar_sim
+from dddmr_navigation_tpu_torch.perception.static_weights import (
+    compute_node_weights)
+from dddmr_navigation_tpu_torch.utils.lidar_sim import BoxWorld, simulate_scan
 from dddmr_navigation_tpu_torch.parallel.fleet import (
     FleetState, fleet_tick, integrate_fleet)
 from dddmr_navigation_tpu_torch.planning.local.planner import (
@@ -61,7 +63,7 @@ def build_inputs(device):
     return cfg, args
 
 
-def entry(device="cpu"):
+def entry(device="cuda"):
     """Returns (fn, example_args): one single-robot control tick."""
     cfg, args = build_inputs(device)
 
@@ -104,7 +106,7 @@ def headline_numpy(robots: int, obstacles_n: int):
     return plans, obstacles, obs_valid, pos
 
 
-def headline_inputs(cfg: LocalPlannerConfig, robots: int = 64, device="cpu"):
+def headline_inputs(cfg: LocalPlannerConfig, robots: int = 64, device="cuda"):
     """(plans, start FleetState, obstacles, obs_valid) of the headline."""
     plans_np, obstacles, obs_valid, pos = headline_numpy(
         robots, cfg.max_obstacle_points)
@@ -193,7 +195,7 @@ def config3_config(linear_samples: int = 63, angular_samples: int = 127,
 
 def config3_map(resolution: float = 0.25):
     """The multi-level map's (ground, map_pts, node weights, static
-    dGraph) as numpy, from the shared numpy functions."""
+    dGraph) as numpy, from the port's numpy map functions."""
     ground, map_pts = multi_level_map(resolution=resolution)
     weights, static_dgraph = compute_node_weights(ground, map_pts)
     return ground, map_pts, weights, static_dgraph
@@ -202,7 +204,7 @@ def config3_map(resolution: float = 0.25):
 def config3_world(extra_boxes=()):
     """The bench's box world (one box beside the robot), plus any extra
     ``(min_xyz, max_xyz)`` boxes."""
-    world = lidar_sim().BoxWorld()
+    world = BoxWorld()
     for mn, mx in (CONFIG3_BOX, *extra_boxes):
         world.add_box(mn, mx)
     return world
@@ -215,7 +217,7 @@ def config3_scan(cfg: NavigationConfig, world, robot_pos, yaw: float):
     lidar = cfg.perception.lidar
     robot_pos = np.asarray(robot_pos, np.float32)
     offset = np.asarray(CONFIG3_OFFSET, np.float32)
-    pts, mask = lidar_sim().simulate_scan(
+    pts, mask = simulate_scan(
         world, robot_pos + offset, sensor_yaw=yaw,
         n_rings=lidar.range_image_rows, n_cols=lidar.range_image_cols)
     mask = mask & (pts[:, 2] + robot_pos[2] + offset[2] >= 0.15)
@@ -231,7 +233,7 @@ class Config3(NamedTuple):
     offset: np.ndarray        # (3,) sensor offset
 
 
-def config3_inputs(cfg: NavigationConfig, device="cpu",
+def config3_inputs(cfg: NavigationConfig, device="cuda",
                    resolution: float = 0.25, map_data=None) -> Config3:
     """The fused map and tick of ``bench_config3``. ``map_data`` takes a
     precomputed :func:`config3_map`."""

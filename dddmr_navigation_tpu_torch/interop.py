@@ -6,6 +6,8 @@
 ``np.asarray`` into the port's class of the same field names, on a given
 device: nested NamedTuples and dataclasses field by field, by the port
 class's annotations. :func:`to_numpy` turns port outputs back into numpy.
+:func:`config_from` rebuilds one of the port's config dataclasses from a
+config of the same field names (the JAX package's, say), by name alone.
 """
 from __future__ import annotations
 
@@ -82,3 +84,19 @@ def to_numpy(x):
     if isinstance(x, dict):
         return {k: to_numpy(v) for k, v in x.items()}
     return x
+
+
+def config_from(obj):
+    """The port's config dataclass of the same class name as ``obj`` (any
+    dataclass instance with the same field names, such as one of the JAX
+    package's configs), built from ``obj``'s fields read by name: nested
+    dataclasses recursively, every other value as it is."""
+    from dddmr_navigation_tpu_torch.config import schema
+    cls = getattr(schema, type(obj).__name__)
+    out = {}
+    for f in dataclasses.fields(cls):
+        value = getattr(obj, f.name)
+        if dataclasses.is_dataclass(value) and not isinstance(value, type):
+            value = config_from(value)
+        out[f.name] = value
+    return cls(**out)

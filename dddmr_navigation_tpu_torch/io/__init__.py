@@ -1,0 +1,6 @@
+"""Map builders (the port's copy of part of ``dddmr_navigation_tpu/io``)."""
+from dddmr_navigation_tpu_torch.io.maps import (
+    box_obstacle,
+    flat_ground_map,
+    multi_level_map,
+)

@@ -8,9 +8,10 @@ version beside it:
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 (built by :mod:`.build` at first use) or raises. Each wrapper counts its
-launches in its ``launches`` attribute.
+launches in its ``launches`` attribute. ``*_v1`` launch the first kernels,
+kept beside the redesigned ones for comparison (CUDA tensors only).
 """
 from dddmr_navigation_tpu_torch.ops.collision import (
-    swept_box_hits, swept_box_hits_plain)
+    swept_box_hits, swept_box_hits_plain, swept_box_hits_v1)
 from dddmr_navigation_tpu_torch.ops.distance_field import (
-    masked_min_distance, masked_min_distance_plain)
+    masked_min_distance, masked_min_distance_plain, masked_min_distance_v1)

@@ -1,7 +1,8 @@
 """Builds the port's CUDA kernels and loads them.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, at first use, and loaded with
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (one nvcc
+per source, in parallel) and linked into one shared library with a plain C
+interface, at first use, and loaded with
 ``ctypes``. The library lands in ``_build/`` beside this package, under a
 name keyed by a hash of the sources and flags, so an edited source builds
 anew and an unchanged one is loaded as it is. A failed build raises with
@@ -29,16 +30,20 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 # plain PyTorch versions round them, so compares and minima agree bit for
 # bit. No --use_fast_math: sqrtf must stay correctly rounded.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "--fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "--fmad=false", "-std=c++17", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 _VOID_P, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the library's entry points (see csrc/*.cu).
+# Each ``*_v1_launch`` is the first kernel of the same source, kept beside
+# the redesign for comparison, with the same signature.
+_HITS = [_VOID_P] * 5 + [_INT] * 4 + [_FLOAT] * 3 + [_VOID_P, _VOID_P]
+_DIST = [_VOID_P] * 4 + [_INT] * 3 + [_VOID_P, _VOID_P]
 SIGNATURES = {
-    "swept_box_hits_launch": (
-        [_VOID_P] * 5 + [_INT] * 4 + [_FLOAT] * 3 + [_VOID_P, _VOID_P]),
-    "masked_min_distance_launch": (
-        [_VOID_P] * 4 + [_INT] * 3 + [_VOID_P, _VOID_P]),
+    "swept_box_hits_launch": _HITS,
+    "swept_box_hits_v1_launch": _HITS,
+    "masked_min_distance_launch": _DIST,
+    "masked_min_distance_v1_launch": _DIST,
 }
 
 
@@ -74,26 +79,40 @@ def library_path() -> Path:
 
 
 def build() -> tuple[Path, str]:
-    """Compile the library if it is not built yet. Returns its path and
-    the compiler's report (ptxas register and shared-memory use), empty
-    when the library was already there."""
+    """Compile the library if it is not built yet: one nvcc per source, all
+    started together, then one link. Returns its path and the compiler's
+    report (ptxas register and shared-memory use), empty when the library
+    was already there."""
     lib = library_path()
     if lib.is_file():
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Build into a temporary name and rename, so a reader in another
-    # process never loads a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        jobs = []
+        for src in sources():
+            obj = Path(tmpdir) / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        report = [proc.communicate()[0] for _, _, proc in jobs]
+        for (cmd, _, proc), out in zip(jobs, report):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{out}")
+        # Link into a temporary name and rename, so a reader in another
+        # process never loads a half-written library.
+        tmp = Path(tmpdir) / lib.name
+        cmd = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp),
+               *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, lib)
+    return lib, "".join(report)
 
 
 @functools.cache

@@ -8,7 +8,12 @@ the half extents ``half``. A point p is inside iff
 
 ``swept_box_hits`` dispatches on the tensors' device: CPU tensors go to
 :func:`swept_box_hits_plain`, CUDA tensors to the hand-written kernel in
-``csrc/swept_box_hits.cu``; anything else raises.
+``csrc/swept_box_hits.cu``; anything else raises. On the card the kernel
+first culls, per warp tile of ``TILE_SAMPLES`` × ``TILE_STEPS`` rows, the
+obstacles outside a sphere that holds every box of the tile, and runs the
+exact test on the rest; :func:`swept_box_cull_plain` mirrors that cull in
+plain PyTorch (for the survivor counts and the tests), and
+:func:`swept_box_hits_v1` launches the first kernel, kept for comparison.
 """
 from __future__ import annotations
 
@@ -62,6 +67,28 @@ def swept_box_hits(axes, projc, step_valid, obstacles, obs_valid, half):
         raise_unless_cpu(axes)
         return swept_box_hits_plain(axes, projc, step_valid, obstacles,
                                     obs_valid, half)
+    return _launch_hits("swept_box_hits_launch", swept_box_hits, axes, projc,
+                        step_valid, obstacles, obs_valid, half)
+
+
+swept_box_hits.launches = 0
+
+
+def swept_box_hits_v1(axes, projc, step_valid, obstacles, obs_valid, half):
+    """The first kernel (every exact test, no cull) on CUDA tensors, for
+    timing comparisons; same arguments and result as
+    :func:`swept_box_hits`. Counts in its own ``launches``."""
+    return _launch_hits("swept_box_hits_v1_launch", swept_box_hits_v1, axes,
+                        projc, step_valid, obstacles, obs_valid, half)
+
+
+swept_box_hits_v1.launches = 0
+
+
+def _launch_hits(entry, counter, axes, projc, step_valid, obstacles,
+                 obs_valid, half):
+    if axes.device.type != "cuda":
+        raise ValueError(f"no kernel for tensors on {axes.device}")
     b, s, n = step_valid.shape
     k = obstacles.shape[1]
     check_cuda_inputs(
@@ -72,11 +99,74 @@ def swept_box_hits(axes, projc, step_valid, obstacles, obs_valid, half):
         (obs_valid, (b, k), torch.bool))
     hits = torch.zeros((b, s), dtype=torch.uint8, device=axes.device)
     h0, h1, h2 = (float(x) for x in half)
-    launch("swept_box_hits_launch", axes, projc, step_valid.view(torch.uint8),
-           obstacles, obs_valid.view(torch.uint8), b, s, n, k, h0, h1, h2,
-           hits)
-    swept_box_hits.launches += 1
+    launch(entry, axes, projc, step_valid.view(torch.uint8), obstacles,
+           obs_valid.view(torch.uint8), b, s, n, k, h0, h1, h2, hits)
+    counter.launches += 1
     return hits.view(torch.bool)
 
 
-swept_box_hits.launches = 0
+# The kernel's warp tile and cull margins (csrc/swept_box_hits.cu).
+TILE_SAMPLES, TILE_STEPS = 8, 4
+_MARGIN_ABS, _MARGIN_REL, _MAX_ETA = 1.0e-3, 1.0e-5, 0.5
+
+
+def _tiles(x, fill):
+    """(B, S, N, ...) → (B, W, 32, ...): the rows of each warp tile, W tiles
+    of TILE_SAMPLES samples × TILE_STEPS steps, samples-major, as the kernel
+    numbers them; padding rows take ``fill``."""
+    b, s, n = x.shape[:3]
+    gs, gn = -(-s // TILE_SAMPLES), -(-n // TILE_STEPS)
+    pad = [0, 0] * (x.dim() - 3) + [0, gn * TILE_STEPS - n,
+                                    0, gs * TILE_SAMPLES - s]
+    if x.dtype == torch.bool:
+        x = torch.nn.functional.pad(x.to(torch.uint8), pad,
+                                    value=int(fill)).bool()
+    else:
+        x = torch.nn.functional.pad(x, pad, value=fill)
+    x = x.reshape(b, gs, TILE_SAMPLES, gn, TILE_STEPS, *x.shape[3:])
+    return x.transpose(2, 3).reshape(b, gs * gn, TILE_SAMPLES * TILE_STEPS,
+                                     *x.shape[5:])
+
+
+def swept_box_cull_plain(axes, projc, step_valid, obstacles, obs_valid, half):
+    """The kernel's cull in plain PyTorch (f32, FMA chains as separate
+    operations; the margins cover the difference). Same arguments as
+    :func:`swept_box_hits`.
+
+    Returns (keep (B, W, K) bool: obstacle k survives tile w's sphere test;
+    rows (B, W, 32) bool: the tile's valid rows)."""
+    x0 = torch.einsum("bsnkj,bsnk->bsnj", axes, projc)           # A^T c
+    g = torch.einsum("bsnij,bsnkj->bsnik", axes, axes) - torch.eye(
+        3, dtype=axes.dtype, device=axes.device)
+    eta = torch.sqrt((g * g).sum(dim=(-1, -2)))
+    hn = float(torch.linalg.vector_norm(torch.tensor(half,
+                                                     dtype=torch.float32)))
+    xn = torch.linalg.vector_norm(x0, dim=-1)
+    radius = ((eta * xn + torch.sqrt(1.0 + eta) * hn) / (1.0 - eta)
+              + _MARGIN_ABS + _MARGIN_REL * (xn + hn))
+    radius = torch.where(eta < _MAX_ETA, radius, torch.inf)
+    rows = _tiles(step_valid, False)                             # (B,W,32)
+    xt = _tiles(x0, 0.0)                                         # (B,W,32,3)
+    # fminf/fmaxf: a NaN center stays out of the box
+    lo = torch.where(rows[..., None] & ~xt.isnan(), xt, torch.inf).amin(2)
+    hi = torch.where(rows[..., None] & ~xt.isnan(), xt, -torch.inf).amax(2)
+    center = 0.5 * (lo + hi)                                     # (B,W,3)
+    reach = (torch.linalg.vector_norm(xt - center[:, :, None], dim=-1)
+             + _tiles(radius, 0.0))
+    reach = torch.where(reach <= 3.0e38, reach, torch.inf)       # NaN → inf
+    wr = torch.where(rows, reach, -torch.inf).amax(2) * (1.0 + 1.0e-5)
+    pts = torch.where(obs_valid[..., None], obstacles, 1.0e9)    # (B,K,3)
+    d = pts[:, None, :, :] - center[:, :, None, :]               # (B,W,K,3)
+    d2 = (d * d).sum(-1)
+    keep = ~(d2 > (wr * wr)[..., None]) & rows.any(2, keepdim=True)
+    return keep, rows
+
+
+def cull_survivor_fraction(axes, projc, step_valid, obstacles, obs_valid,
+                           half) -> float:
+    """The share of (valid row, obstacle) pairs whose obstacle survives the
+    row's tile cull, from :func:`swept_box_cull_plain`."""
+    keep, rows = swept_box_cull_plain(axes, projc, step_valid, obstacles,
+                                      obs_valid, half)
+    pairs = (keep.sum(2) * rows.sum(2)).sum()
+    return float(pairs) / max(1, int(step_valid.sum()) * obstacles.shape[1])

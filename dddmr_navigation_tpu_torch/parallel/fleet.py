@@ -11,7 +11,7 @@ from typing import NamedTuple
 
 import torch
 
-from dddmr_navigation_tpu.config import LocalPlannerConfig
+from dddmr_navigation_tpu_torch.config import LocalPlannerConfig
 from dddmr_navigation_tpu_torch.geometry import (
     yaw_from_quat, quat_from_yaw, quat_multiply)
 from dddmr_navigation_tpu_torch.planning.local.planner import (

@@ -34,7 +34,7 @@ def build_map_context(ground_pts: np.ndarray, map_pts: np.ndarray | None = None,
                       *, height_res: float = 0.25, static_res: float = 0.1,
                       pad_to: int | None = None,
                       node_weight: np.ndarray | None = None,
-                      device="cpu") -> MapContext:
+                      device="cuda") -> MapContext:
     """The same tables as the JAX package's ``build_map_context``."""
     ground_pts = np.asarray(ground_pts, dtype=np.float32)[:, :3]
     if map_pts is None or len(map_pts) == 0:

@@ -11,7 +11,7 @@ from typing import NamedTuple
 
 import torch
 
-from dddmr_navigation_tpu.config import GlobalPlannerConfig
+from dddmr_navigation_tpu_torch.config import GlobalPlannerConfig
 from dddmr_navigation_tpu_torch import not_ported
 from dddmr_navigation_tpu_torch.rounding import fma_norm
 from dddmr_navigation_tpu_torch.planning.global_.los import long_edge_los_mask

@@ -15,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from dddmr_navigation_tpu.config import CriticsConfig, CuboidConfig
+from dddmr_navigation_tpu_torch.config import CriticsConfig, CuboidConfig
 from dddmr_navigation_tpu_torch.geometry import (
     quat_rotate, quat_conjugate, quat_multiply, yaw_from_quat)
 from dddmr_navigation_tpu_torch.ops import swept_box_hits, masked_min_distance

@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from dddmr_navigation_tpu.config import LocalPlannerConfig
+from dddmr_navigation_tpu_torch.config import LocalPlannerConfig
 from dddmr_navigation_tpu_torch.geometry import slope_aware_quat
 from dddmr_navigation_tpu_torch.planning.local.sampler import dd_simple_samples
 from dddmr_navigation_tpu_torch.planning.local.rollout import Rollouts, rollout
@@ -42,7 +42,7 @@ class GlobalPlan(NamedTuple):
 
 
 def make_global_plan(positions, quats=None, max_len: int = 512,
-                     device=None) -> GlobalPlan:
+                     device="cuda") -> GlobalPlan:
     """Pad a fleet's plans of equal length n to ``max_len`` poses.
 
     Args:

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from dddmr_navigation_tpu.config import (
+from dddmr_navigation_tpu_torch.config import (
     DDSimpleGeneratorConfig, TrajectoryGeneratorLimits)
 
 

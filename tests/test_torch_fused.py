@@ -99,7 +99,7 @@ def test_build_fused_map_matches_jax(flat, which):
         ground = sparse_ground()
         jmap = jf.build_fused_map(cfg, ground)
         assert np.asarray(jmap.los_relevant).any()
-    got = tf.build_fused_map(cfg, ground)
+    got = tf.build_fused_map(cfg, ground, device="cpu")
     want = to_port(jax.tree_util.tree_map(np.asarray, jmap), tf.FusedMap,
                    "cpu")
     for f in tf.FusedMap._fields:
@@ -203,7 +203,7 @@ def small():
     Config3 and the JAX package's map and jitted tick."""
     cfg = light_cfg()
     md = entry.config3_map(resolution=0.5)
-    c3 = entry.config3_inputs(cfg, map_data=md)
+    c3 = entry.config3_inputs(cfg, "cpu", map_data=md)
     ground, map_pts, weights, static_dgraph = md
     jmap = jf.build_fused_map(cfg, ground, map_pts, node_weight=weights,
                               static_dgraph=static_dgraph)
@@ -331,7 +331,7 @@ def test_unported_options_raise(small):
         tf.init_fused_state(cfg, 4, torch.zeros(1, 3), depth_cameras=1)
     with pytest.raises(NotImplementedError, match="zone"):
         tf.build_fused_map(cfg, flat_ground_map(2, 2, 0.5),
-                           no_entry_zones=np.zeros((1, 3)))
+                           no_entry_zones=np.zeros((1, 3)), device="cpu")
     from dddmr_navigation_tpu_torch.planning import global_
     from dddmr_navigation_tpu_torch.planning.global_ import (
         planner, wavefront)
@@ -357,7 +357,7 @@ def test_config3_tick0_matches_golden():
     bench config 3's full width, on the plain path."""
     g = np.load(GOLDEN)
     cfg = entry.config3_config()
-    c3 = entry.config3_inputs(cfg)
+    c3 = entry.config3_inputs(cfg, "cpu")
     np.testing.assert_array_equal(c3.fmap.wf_bins.numpy(), g["bins"])
     np.testing.assert_allclose(c3.fmap.wf_az.numpy(), g["az"], atol=1e-6)
     np.testing.assert_allclose(c3.fmap.turn_pen.numpy(), g["turn_pen"],

@@ -29,6 +29,7 @@ from dddmr_navigation_tpu.planning.global_.los import (
 
 from dddmr_navigation_tpu_torch.planning.global_ import wavefront as tw
 from dddmr_navigation_tpu_torch.planning.global_ import planner as tp
+from dddmr_navigation_tpu_torch.interop import config_from
 from dddmr_navigation_tpu_torch.planning.global_.los import (
     long_edge_los_mask, lethal_cloud_from_dgraph)
 
@@ -256,6 +257,7 @@ def test_plan_prepare_and_finish_match_jax(sparse):
     relaxed field (the default config: turning over 16 bins)."""
     cfg = GlobalPlannerConfig(max_long_edges=256, los_samples=16,
                               max_relax_iters=200)
+    tcfg = config_from(cfg)
     dg = np.stack([sparse.dgraph(14), sparse.dgraph(15)])
     node_w = np.ones(sparse.n, np.float32)
     start = np.array([[0.3, 0.2, 0.0], [7.7, 7.9, 0.0]], np.float32)
@@ -265,7 +267,7 @@ def test_plan_prepare_and_finish_match_jax(sparse):
                                        inscribed_radius=0.5, max_lethal=64)
     warm = np.full((2, sparse.n, BINS), np.inf, np.float32)
     prep = tp.plan_prepare(
-        cfg, t(sparse.idx), t(sparse.dist), t(sparse.valid), t(sparse.ground),
+        tcfg, t(sparse.idx), t(sparse.dist), t(sparse.valid), t(sparse.ground),
         t(valid), t(dg), t(node_w), t(start), t(goal), inscribed_radius=0.5,
         inflation_descending_rate=2.0, lethal_pts=pts, lethal_valid=ok,
         warm_dist=t(warm), warm_goal_idx=t([-1, -1]))
@@ -293,7 +295,7 @@ def test_plan_prepare_and_finish_match_jax(sparse):
         want = j_finish(sparse.idx, sparse.dist, sparse.ground, wp, dist,
                         iters, turn_pen=sparse.tpen, wf_bins=sparse.bins)
         tprep = tp.PlanPrep(*(t(x)[None] for x in wp[:5]), t(wp.warm_dist)[None])
-        got = tp.plan_finish(cfg, t(sparse.idx), t(sparse.dist),
+        got = tp.plan_finish(tcfg, t(sparse.idx), t(sparse.dist),
                              t(sparse.ground), tprep, t(dist)[None],
                              t(iters)[None], turn_pen=t(sparse.tpen),
                              wf_bins=t(sparse.bins))
@@ -307,6 +309,7 @@ def test_plan_on_graph_matches_jax(sparse):
     """End to end on the sparse graph (LOS on): the same paths."""
     cfg = GlobalPlannerConfig(max_long_edges=256, los_samples=16,
                               max_relax_iters=200)
+    tcfg = config_from(cfg)
     dg = np.stack([sparse.dgraph(16), sparse.dgraph(17)])
     node_w = np.ones(sparse.n, np.float32)
     start = np.array([[0.3, 0.2, 0.0], [7.7, 7.9, 0.0]], np.float32)
@@ -315,7 +318,7 @@ def test_plan_on_graph_matches_jax(sparse):
     pts, ok = lethal_cloud_from_dgraph(t(sparse.ground), t(valid), t(dg),
                                        inscribed_radius=0.5, max_lethal=64)
     got = tp.plan_on_graph(
-        cfg, t(sparse.idx), t(sparse.dist), t(sparse.valid), t(sparse.ground),
+        tcfg, t(sparse.idx), t(sparse.dist), t(sparse.valid), t(sparse.ground),
         t(valid), t(dg), t(node_w), t(sparse.avg), t(start), t(goal),
         inscribed_radius=0.5, inflation_descending_rate=2.0,
         lethal_pts=pts, lethal_valid=ok, turn_pen=t(sparse.tpen),

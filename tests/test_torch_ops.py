@@ -16,10 +16,15 @@ from dddmr_navigation_tpu.ops.collision import swept_box_hits as jax_hits
 from dddmr_navigation_tpu.ops.distance_field import (
     masked_min_distance as jax_min_dist)
 from dddmr_navigation_tpu_torch.ops import (
-    swept_box_hits, swept_box_hits_plain, masked_min_distance,
-    masked_min_distance_plain)
+    swept_box_hits, swept_box_hits_plain, swept_box_hits_v1,
+    masked_min_distance, masked_min_distance_plain, masked_min_distance_v1)
+from dddmr_navigation_tpu_torch.ops import adversarial
+from dddmr_navigation_tpu_torch.ops.collision import (
+    _tiles, swept_box_cull_plain)
+from dddmr_navigation_tpu_torch.ops.distance_field import (
+    masked_min_distance_compacted_plain)
+from dddmr_navigation_tpu_torch.config import CuboidConfig
 from dddmr_navigation_tpu_torch.planning.local.critics import cuboid_box
-from dddmr_navigation_tpu.config import CuboidConfig
 
 torch.set_num_threads(1)
 # Nothing here is a matmul; TF32 stays off so no comparison could use it.
@@ -122,7 +127,52 @@ def test_wrappers_reject_other_devices():
 
 
 # ---------------------------------------------------------------------------
-# on the card: each kernel against its plain version
+# the kernels' culls, mirrored in plain PyTorch: they never drop a true hit
+# or a true minimum
+# ---------------------------------------------------------------------------
+
+def inside_pairs(axes, projc, step_valid, obs, obs_valid, half):
+    """(B, S, N, K) bool: the exact per-pair test of the plain version."""
+    proj = torch.einsum("bsnkj,bmj->bsnkm", axes, obs)
+    ok = (proj - projc[..., None]).abs() <= torch.tensor(half)[:, None]
+    return ok.all(3) & obs_valid[:, None, None, :] & step_valid[..., None]
+
+
+@pytest.mark.parametrize("case", ["adversarial0", "adversarial1",
+                                  "adversarial2", "random0", "random1"])
+def test_swept_box_cull_never_drops_a_hit(case):
+    seed = int(case[-1])
+    make = adversarial.box_inputs if case.startswith("adv") else box_inputs
+    args = [torch.as_tensor(a) for a in make(seed)]
+    half = adversarial.HALF if case.startswith("adv") else HALF
+    keep, rows = swept_box_cull_plain(*args, half)
+    inside = _tiles(inside_pairs(*args, half), False)          # (B,W,32,K)
+    assert int(inside.sum()) > 0
+    assert not bool((inside & ~keep[:, :, None, :]).any())
+    assert bool((rows.any(2, keepdim=True) & ~keep).any())      # it culls
+    hits = swept_box_hits_plain(*args, half)
+    assert 0 < int(hits.sum()) < hits.numel()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("q", [1000, 40000])        # narrow and wide variant
+def test_masked_min_distance_compaction_keeps_every_minimum(seed, q):
+    args = [torch.as_tensor(a) for a in adversarial.dist_inputs(seed, q=q)]
+    staged, got = masked_min_distance_compacted_plain(*args)
+    want = masked_min_distance_plain(*args)
+    assert torch.equal(got, want)
+    m = args[2].shape[1]
+    assert staged.tolist() == (args[3].sum(1) + 1).tolist()   # + parking
+    assert int(staged.max()) < m                                # it drops
+    # robot 2 has no valid point: only the parking point, at distance 0
+    # from its five queries there and 1e6 from the rest
+    assert bool((want[2, :5] == 0).all())
+    assert bool((want[2, 5:][args[1][2, 5:]] > 1e5).all())
+    assert bool((want[3] == 1e6).all())
+
+
+# ---------------------------------------------------------------------------
+# on the card: each kernel against its plain version and its first kernel
 # ---------------------------------------------------------------------------
 
 @pytest.fixture
@@ -209,3 +259,80 @@ def test_masked_min_distance_kernel_matches_plain_at_fused_shapes(
     torch.cuda.synchronize()
     assert masked_min_distance.launches == before + 1
     assert torch.equal(got, masked_min_distance_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_swept_box_hits_kernel_matches_plain_and_v1_on_adversarial_inputs(
+        cuda_device, seed):
+    args = [torch.as_tensor(a, device=cuda_device)
+            for a in adversarial.box_inputs(seed)]
+    got = swept_box_hits(*args, adversarial.HALF)
+    v1 = swept_box_hits_v1(*args, adversarial.HALF)
+    want = swept_box_hits_plain(*args, adversarial.HALF)
+    torch.cuda.synchronize()
+    assert 0 < int(want.sum()) < want.numel()
+    assert torch.equal(got, want) and torch.equal(v1, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("q", [1000, 40000])        # narrow and wide variant
+def test_masked_min_distance_kernel_matches_plain_and_v1_on_adversarial_inputs(
+        cuda_device, seed, q):
+    args = [torch.as_tensor(a, device=cuda_device)
+            for a in adversarial.dist_inputs(seed, q=q)]
+    got = masked_min_distance(*args)
+    v1 = masked_min_distance_v1(*args)
+    want = masked_min_distance_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(v1, want)
+
+
+# The headline tick's shapes: 64 robots, 289 samples of 40 steps, near-K
+# 128; the stick-path call's 289·40 = 11,560 queries per robot.
+HEAD_B, HEAD_S = 64, 289
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["headline", "fused"])
+def test_swept_box_hits_kernel_matches_v1(cuda_device, shape):
+    b, s = (HEAD_B, HEAD_S) if shape == "headline" else (1, FUSED_S)
+    rng = np.random.default_rng(7)
+    axes = np.linalg.qr(rng.normal(size=(b, s, FUSED_N, 3, 3)))[0]
+    axes = np.ascontiguousarray(np.swapaxes(axes, -1, -2), np.float32)
+    centers = rng.uniform(-3.0, 3.0, size=(b, s, FUSED_N, 3))
+    projc = np.einsum("bsnkj,bsnj->bsnk", axes.astype(np.float64),
+                      centers).astype(np.float32)
+    step_valid = rng.uniform(size=(b, s, FUSED_N)) < 0.6
+    obs = rng.uniform(-6.0, 6.0, size=(b, FUSED_K, 3)).astype(np.float32)
+    obs_valid = rng.uniform(size=(b, FUSED_K)) < 0.9
+    args = [torch.as_tensor(a, device=cuda_device)
+            for a in (axes, projc, step_valid, obs, obs_valid)]
+    got = swept_box_hits(*args, HALF)
+    v1 = swept_box_hits_v1(*args, HALF)
+    want = swept_box_hits_plain(*args, HALF)
+    torch.cuda.synchronize()
+    assert 0 < int(want.sum()) < want.numel()
+    assert torch.equal(got, want) and torch.equal(v1, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["headline", "fused"])
+def test_masked_min_distance_kernel_matches_v1(cuda_device, shape):
+    b, q = ((HEAD_B, HEAD_S * FUSED_N) if shape == "headline"
+            else (1, FUSED_S * FUSED_N))
+    rng = np.random.default_rng(8)
+    queries = (rng.uniform(-3, 3, size=(b, q, 3)) + 12.0).astype(np.float32)
+    points = (rng.uniform(-3, 3, size=(b, FUSED_P, 3)) + 12.0).astype(
+        np.float32)
+    q_mask = rng.uniform(size=(b, q)) < 0.5
+    p_mask = np.arange(FUSED_P)[None].repeat(b, 0) < rng.integers(
+        1, FUSED_P, size=(b, 1))
+    args = [torch.as_tensor(a, device=cuda_device)
+            for a in (queries, q_mask, points, p_mask)]
+    got = masked_min_distance(*args)
+    v1 = masked_min_distance_v1(*args)
+    want = masked_min_distance_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(v1, want)

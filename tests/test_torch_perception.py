@@ -216,7 +216,7 @@ def flat_map():
     ground = flat_ground_map(4, 4, 0.25)
     walls = box_obstacle([1.2, 0.8, 0.0], size=(0.3, 0.3, 0.6))
     return ground, walls, j_build_ctx(ground, walls), build_map_context(
-        ground, walls)
+        ground, walls, device="cpu")
 
 
 def test_static_lookups_match_jax(flat_map):

@@ -40,7 +40,8 @@ from dddmr_navigation_tpu_torch.planning.local.planner import (
     compute_velocity_command, goal_reached)
 from dddmr_navigation_tpu_torch.parallel.fleet import (
     FleetState, fleet_tick, integrate_fleet)
-from dddmr_navigation_tpu_torch.interop import to_port, to_numpy, tensor
+from dddmr_navigation_tpu_torch.interop import (
+    config_from, to_port, to_numpy, tensor)
 from dddmr_navigation_tpu_torch import entry
 
 torch.set_num_threads(1)
@@ -210,7 +211,7 @@ def small():
 def test_make_global_plan_matches_jax():
     plans = small_inputs()[0]
     want = [j_make_plan(p, max_len=64) for p in plans]
-    got = to_numpy(make_global_plan(plans, max_len=64))
+    got = to_numpy(make_global_plan(plans, max_len=64, device="cpu"))
     for b, w in enumerate(want):
         np.testing.assert_array_equal(got.valid[b], np.asarray(w.valid))
         assert got.count[b] == int(w.count)
@@ -271,14 +272,15 @@ def test_scores_and_command_match_jax(small):
 
 
 def test_unported_options_raise():
-    args = make_global_plan(np.zeros((1, 4, 3)), max_len=8), *(
+    args = make_global_plan(np.zeros((1, 4, 3)), max_len=8,
+                            device="cpu"), *(
         torch.zeros(s) for s in ((1, 3), (1, 4), (1,), (1,), (1, 8, 3)))
     with pytest.raises(NotImplementedError):
         compute_velocity_command(SMALL, *args, torch.ones(1, 8, dtype=bool),
                                  generator="omni_drive_simple")
     from dddmr_navigation_tpu.config import CriticConfig, CriticsConfig
-    cfg = LocalPlannerConfig(critics=CriticsConfig(
-        collision_min_max=CriticConfig(weight=1.0)))
+    cfg = config_from(LocalPlannerConfig(critics=CriticsConfig(
+        collision_min_max=CriticConfig(weight=1.0))))
     with pytest.raises(NotImplementedError):
         compute_velocity_command(cfg, *args, torch.ones(1, 8, dtype=bool))
 
@@ -339,7 +341,7 @@ def default_ticks():
         lambda x: np.broadcast_to(np.asarray(x), (b,) + x.shape), plan)
     cols = [np.stack(c) for c in zip(*rows)]
     got = compute_velocity_command(
-        cfg, to_port(plan_np, GlobalPlan, "cpu"),
+        config_from(cfg), to_port(plan_np, GlobalPlan, "cpu"),
         *(tensor(c, "cpu") for c in cols))
     return want, to_numpy(got)
 
@@ -429,7 +431,8 @@ def test_tracked_integration_matches_jax():
     want = j_integrate(JFleetState(pos, quat, v, w), vx, wz, dt, limits)
     got = integrate_fleet(FleetState(*(tensor(x, "cpu")
                                        for x in (pos, quat, v, w))),
-                          tensor(vx, "cpu"), tensor(wz, "cpu"), dt, limits)
+                          tensor(vx, "cpu"), tensor(wz, "cpu"), dt,
+                          config_from(limits))
     for field in FleetState._fields:
         np.testing.assert_allclose(getattr(got, field).numpy(),
                                    np.asarray(getattr(want, field)),
@@ -439,7 +442,7 @@ def test_tracked_integration_matches_jax():
 
 def test_run_chain_carries_state():
     cfg = entry.headline_config(4, 4, 16, 64, 32, 32, 128)
-    plans, state, obs, obs_valid = entry.headline_inputs(cfg, 3)
+    plans, state, obs, obs_valid = entry.headline_inputs(cfg, 3, "cpu")
     chain = entry.run_chain(cfg, plans, state, obs, obs_valid, ticks=3)
     assert chain.state.shape == chain.best_index.shape == (3, 3)
     assert chain.found.tolist() == [3, 3, 3]
@@ -456,7 +459,7 @@ def test_headline_tick0_matches_golden():
     package's tick 0 (tools/make_torch_golden.py)."""
     g = np.load(GOLDEN)
     cfg = entry.headline_config()
-    plans, state, obs, obs_valid = entry.headline_inputs(cfg, 64)
+    plans, state, obs, obs_valid = entry.headline_inputs(cfg, 64, "cpu")
     cmd = to_numpy(fleet_tick(cfg, plans, state, obs, obs_valid))
     np.testing.assert_array_equal(cmd.state, g["state"])
     assert_best_index(cmd.best_index, g["best_index"], g["costs"])
@@ -466,23 +469,30 @@ def test_headline_tick0_matches_golden():
 
 
 def test_port_never_imports_jax():
-    code = ("import sys\n"
+    """Both entry points run with nothing of JAX and nothing of the JAX
+    package loaded: no such module in ``sys.modules``, and no loaded
+    module's file under ``dddmr_navigation_tpu/``."""
+    code = ("import os, sys\n"
             "import dddmr_navigation_tpu_torch\n"
             "import dddmr_navigation_tpu_torch.entry\n"
             "import dddmr_navigation_tpu_torch.interop\n"
+            "import dddmr_navigation_tpu_torch.config\n"
+            "import dddmr_navigation_tpu_torch.io\n"
+            "import dddmr_navigation_tpu_torch.utils\n"
             "import dddmr_navigation_tpu_torch.ops.build\n"
             "import dddmr_navigation_tpu_torch.parallel.fleet\n"
             "import dddmr_navigation_tpu_torch.control.fused\n"
             "import dddmr_navigation_tpu_torch.perception.marking\n"
             "import dddmr_navigation_tpu_torch.perception.layers\n"
+            "import dddmr_navigation_tpu_torch.perception.static_weights\n"
+            "import dddmr_navigation_tpu_torch.planning.global_.graph\n"
             "import dddmr_navigation_tpu_torch.planning.global_.planner\n"
             "import dddmr_navigation_tpu_torch.ops.compaction\n"
-            "import dddmr_navigation_tpu_torch.shared\n"
             "fn, args = dddmr_navigation_tpu_torch.entry.entry('cpu')\n"
             "fn(*args)\n"
             "from dddmr_navigation_tpu_torch import entry as e\n"
             "cfg = e.config3_config(3, 3, 8, 32, 16, 8, 64, 128, 16)\n"
-            "c3 = e.config3_inputs(cfg, resolution=1.0)\n"
+            "c3 = e.config3_inputs(cfg, 'cpu', resolution=1.0)\n"
             "pts, m = e.config3_scan(cfg, e.config3_world(), c3.robot, 0.0)\n"
             "import torch\n"
             "r = torch.as_tensor(c3.robot)[None]\n"
@@ -491,8 +501,46 @@ def test_port_never_imports_jax():
             "        torch.as_tensor(c3.offset), torch.as_tensor(c3.goal)[None],\n"
             "        torch.zeros(1), torch.zeros(1))\n"
             "bad = sorted(m for m in sys.modules\n"
-            "             if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
-            "assert not bad, bad\n")
-    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+            "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
+            "             or m == 'dddmr_navigation_tpu'\n"
+            "             or m.startswith('dddmr_navigation_tpu.'))\n"
+            "assert not bad, bad\n"
+            "jax_pkg = os.path.join(sys.argv[1], 'dddmr_navigation_tpu') + os.sep\n"
+            "files = sorted(f for f in (getattr(m, '__file__', None)\n"
+            "                           for m in list(sys.modules.values()))\n"
+            "               if f and os.path.abspath(f).startswith(jax_pkg))\n"
+            "assert not files, files\n")
+    proc = subprocess.run([sys.executable, "-c", code, ROOT], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_entry_points_default_to_cuda():
+    """Called without ``device``, every entry point targets the card: with
+    one, its tensors lie there; without one, the call raises and returns
+    no CPU tensors."""
+    from dddmr_navigation_tpu_torch.control.fused import build_fused_map
+    from dddmr_navigation_tpu_torch.io import flat_ground_map
+    from dddmr_navigation_tpu_torch.perception.static_map import (
+        build_map_context)
+    cfg = entry.headline_config(4, 4, 8, 16, 8, 8, 32)
+    c3_cfg = entry.config3_config(3, 3, 8, 32, 16, 8, 64, 128, 16)
+    ground = flat_ground_map(2, 2, 0.5)
+    calls = {
+        "entry": lambda: entry.entry()[1][0].positions,
+        "headline_inputs": lambda: entry.headline_inputs(cfg, 2)[2],
+        "config3_inputs": lambda: entry.config3_inputs(
+            c3_cfg, map_data=(ground, ground[:1], np.ones(len(ground)),
+                              np.full(len(ground), 9999.0))).fmap.ground,
+        "build_fused_map": lambda: build_fused_map(c3_cfg, ground).ground,
+        "build_map_context": lambda: build_map_context(ground).ground,
+        "make_global_plan": lambda: make_global_plan(
+            np.zeros((1, 4, 3)), max_len=8).positions,
+    }
+    have_card = torch.cuda.is_available()
+    for name, call in calls.items():
+        if have_card:
+            assert call().device.type == "cuda", name
+        else:
+            with pytest.raises((RuntimeError, AssertionError)):
+                call()
