@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch port (dddmr_navigation_tpu_torch) on one CUDA
-card, at the full width of the 64-robot headline fleet.
+card, at the full width of the 64-robot headline fleet, the fused tick of
+bench config 3 and the full-fidelity fleet of bench config 4.
 
     python3 chip_smoke.py
 
@@ -65,16 +66,45 @@ steps, one robot; any failed check raises:
      relaxation; extraction and interpolation; the local tick), host
      syncs per tick, the plain path's median, a profile, and peak memory.
 
+Then the fleet phase, bench config 4 (``bench.py::bench_config4``) at full
+width: 64 robots on the 12×8 m warehouse floor (1,617 ground nodes), MCL
+with 60 particles in ``corr`` mode on drifting odometry, a 64×64×24 window,
+2,048 scan points, 16×16 samples of 40 steps, one turning relaxation for
+the fleet (192 iterations at most), the rotate generator, the FSM and the
+rotate recovery; any failed check raises:
+ 13. builds the map, submap and start state (the MCL's initial normals
+     from ``dddmr_navigation_tpu_torch/testdata/config4_golden.npz``);
+ 14. the cold tick and 10 warm ticks closed loop on the kernel path and on
+     the plain path, MCL draws from one ``torch.Generator`` on the card:
+     integer outputs equal and floats bit for bit, three ``swept_box_hits``
+     launches (simple rollouts; the rotate-shortest-angle and the
+     recovery's rotate-in-place rollouts, S = 2) and two
+     ``masked_min_distance`` launches per tick;
+ 15. the golden chain with JAX's own MCL draws, each tick teacher-forced
+     on the recorded true pose, twist and MCL state: decisions, command
+     sources, planner states, plan_ok and iterations equal JAX's, commands,
+     plan poses and MCL errors within 1e-5;
+ 16. as step 3, on the arguments of warm ticks 1 and 6 with four robots'
+     obstacles replaced by a ring that every rollout hits, so that every
+     call shape (S = 289 and S = 2) holds both outcomes; by call shape its
+     launches per tick, device µs, bound and cull share;
+ 17. times the cold tick and warm chains (median, p95, p99 from CUDA
+     events), the plain path, the stages (MCL; perceive+prepare;
+     relaxation; extraction+interpolation; simple local;
+     rotate+recovery+FSM), host syncs in a warm tick, a profile and peak
+     memory.
+
 The line before the last is one JSON object with each kernel's route,
-source, launches, error, times and bound: ``launches`` counts both
+source, launches, error, times and bound: ``launches`` counts the three
 phases' chains (each counter set to 0 just before its chain and read just
 after), ``max_abs_err`` is the largest over every check, ``ms``,
 ``plain_ms``, ``v1_ms``, ``bound_us`` (``bound_ms``), ``device_us_per_tick``
-and ``v1_device_us_per_tick`` add a headline tick's and a fused tick's
-calls, ``share_of_bound`` is bound over device time, ``library_ms`` is
-null (no single PyTorch call computes either function), and ``paths``
-gives each phase's own numbers, with ``full_bound_us``, the bound counted
-over every row and obstacle of the shapes, and ``cull_keeps``. The last line is
+and ``v1_device_us_per_tick`` add a headline tick's, a fused tick's and a
+fleet tick's calls, ``share_of_bound`` is bound over device time,
+``library_ms`` is null (no single PyTorch call computes either function),
+and ``paths`` gives each phase's own numbers, with ``full_bound_us``, the
+bound counted over every row and obstacle of the shapes, ``cull_keeps``
+and ``by_shape``. The last line is
 ``{"ok": true, "device": {...}}``. TF32 is off and matmuls run at full
 f32 ("highest"): the fused tick's distance field and cluster sums are
 matmuls, as the JAX package runs them at Precision.HIGHEST.
@@ -110,6 +140,17 @@ FUSED_CHECK_TICKS = (0, 10, FUSED_TICKS - 1)
 # lies behind the robot, and no rollout of the chain reaches it.
 FUSED_CHECK_BOX = ((9.1, 7.6, 0.0), (9.5, 8.0, 1.0))
 FUSED_PROFILED_TICKS = 3
+
+FLEET_PER_TICK = {"swept_box_hits": 3, "masked_min_distance": 2}
+FLEET_CHECK_TICKS = (1, 6)        # kernel vs plain on these warm ticks
+FLEET_RING_ROBOTS = (0, 1, 2, 3)  # their recorded obstacles get a ring
+FLEET_CHAINS = 3                  # timed warm chains of the fleet phase
+FLEET_COLD_REPS = 3               # timed cold ticks
+FLEET_PROFILED_TICKS = 3
+FLEET_SEED = 4                    # the chains' torch.Generator seed
+FLEET_INT = ("decision", "cmd_source", "ps_simple", "ps_rotate", "plan_ok",
+             "wf_iters", "best_index", "recovery_active")
+FLEET_FLOAT = ("vx", "wz", "plan_pos", "plan_yaw", "mcl_err")
 
 
 def fail(msg):
@@ -149,17 +190,17 @@ def critics_calling(hits_fn, dist_fn):
         critics.swept_box_hits, critics.masked_min_distance = saved
 
 
-def recorder_pair(check_ticks):
+def recorder_pair(check_ticks, per_tick=PER_TICK):
     """Wrappers of the two kernel entry points that keep the arguments of
     the calls made at ``check_ticks`` (tick = call count // calls per
     tick). Returns ({name: wrapper factory}, {name: [(tick, args)]})."""
-    calls = {name: [] for name in PER_TICK}
-    seen = dict.fromkeys(PER_TICK, 0)
+    calls = {name: [] for name in per_tick}
+    seen = dict.fromkeys(per_tick, 0)
 
     def recorder(name, fn):
         def rec(*args):
-            if seen[name] // PER_TICK[name] in check_ticks:
-                calls[name].append((seen[name] // PER_TICK[name], args))
+            if seen[name] // per_tick[name] in check_ticks:
+                calls[name].append((seen[name] // per_tick[name], args))
             seen[name] += 1
             return fn(*args)
         return rec
@@ -171,21 +212,33 @@ def call_all(fn, calls):
         fn(*args)
 
 
-def device_us(fn, calls, key, reps):
+def device_us(fn, calls, key, reps, tries=4):
     """Device µs of the kernels whose name holds ``key`` over ``reps``
-    runs of ``calls``, from the profiler."""
+    runs of ``calls``, from the profiler: the mean device time of the
+    launches it recorded, times the launches made. The profiler on this
+    card drops a launch now and then (29 of 30 recorded, consistently, in
+    one call); a profile that recorded under half of them is taken again,
+    ``tries`` times at most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            call_all(fn, calls)
+    expected = reps * len(calls)
+    for _ in range(tries):
         torch.cuda.synchronize()
-    t = sum(ev.self_device_time_total for ev in prof.key_averages()
-            if ev.device_type == torch.autograd.DeviceType.CUDA
-            and key in ev.key)
-    check(t > 0, f"the profiler recorded no device time for {key}")
-    return t
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call_all(fn, calls)
+            torch.cuda.synchronize()
+        mine = [ev for ev in prof.key_averages()
+                if ev.device_type == torch.autograd.DeviceType.CUDA
+                and key in ev.key]
+        t = sum(ev.self_device_time_total for ev in mine)
+        n = sum(ev.count for ev in mine)
+        if 2 * n >= expected:
+            if n < expected:
+                print(f"profile of {key}: {n} of {expected} launches "
+                      f"recorded; their mean is scaled to {expected}")
+            return t * expected / n
+    fail(f"the profiler recorded {n} of {expected} launches of {key}")
 
 
 def bound_us(name, args):
@@ -242,16 +295,19 @@ def cull_share(name, args):
     return float(staged.sum()) / staged.numel() / args[2].shape[1]
 
 
-def check_kernels(kernels, calls, check_ticks):
+def check_kernels(kernels, calls, check_ticks, per_tick=PER_TICK,
+                  require_faster=True):
     """Each kernel, and its first kernel (v1), against its plain version on
     the recorded arguments, bit for bit (hits and distances), and the plain
-    hits must hold both outcomes over the checked ticks. Then per tick
-    (all of a tick's calls, averaged over ``check_ticks``): the plain
-    version's ms; the new kernel's and v1's ms from CUDA events and device
-    µs from the profiler, in turns (TURNS); the bound; the cull's survivor
-    share. Returns {name: dict}."""
+    hits of each call shape must hold both outcomes over the checked
+    ticks. Then per tick (all of a tick's calls, averaged over
+    ``check_ticks``): the plain version's ms; the new kernel's and v1's ms
+    from CUDA events and device µs from the profiler, in turns (TURNS),
+    where ``require_faster`` asks the redesign to be no slower than v1;
+    the bound; the cull's survivor share; and the same by call shape
+    (``by_shape``). Returns {name: dict}."""
     import torch
-    check(all(len(calls[k]) == PER_TICK[k] * len(check_ticks)
+    check(all(len(calls[k]) == per_tick[k] * len(check_ticks)
               for k in calls),
           f"unexpected kernel calls per tick: "
           f"{ {k: len(v) for k, v in calls.items()} }")
@@ -259,7 +315,7 @@ def check_kernels(kernels, calls, check_ticks):
     stats = {}
     for name, k in kernels.items():
         st = stats[name] = dict(max_abs_err=0.0, plain_ms=0.0, bound_us=0.0)
-        hits = total = 0
+        by_shape = {}
         bounds, culls = [], []
         for t, args in calls[name]:
             got, v1 = k["kernel"](*args), k["v1"](*args)
@@ -270,12 +326,17 @@ def check_kernels(kernels, calls, check_ticks):
                   f"{want.shape}/{want.dtype}")
             check(torch.equal(v1, want), f"{name} v1 tick {t}: differs from "
                   f"plain")
+            shape = "x".join(str(d) for d in args[0].shape[:3])
+            sh = by_shape.setdefault(shape, dict(
+                hits=0, total=0, bound_us=0.0, cull=[], calls=[],
+                launches_per_tick=0))
+            sh["calls"].append((t, args))
             if got.dtype == torch.bool:
                 err = float((got != want).sum())
                 check(err == 0, f"{name} tick {t}: {int(err)} hits differ "
                       f"from plain")
-                hits += int(want.sum())
-                total += want.numel()
+                sh["hits"] += int(want.sum())
+                sh["total"] += want.numel()
                 what = f"{int(want.sum())}/{want.numel()} hits"
             else:
                 check(bool((want < 1e6).any()),
@@ -291,6 +352,8 @@ def check_kernels(kernels, calls, check_ticks):
             cull = cull_share(name, args)
             bounds.append((b_us, b_by))
             culls.append(cull)
+            sh["bound_us"] += b_us / n_ticks
+            sh["cull"].append(cull)
             shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
             print(f"{name} tick {t} {shapes} ({what}): equal to plain, v1 "
                   f"equal to plain; plain {plain_ms:.4f} ms; bound "
@@ -301,11 +364,13 @@ def check_kernels(kernels, calls, check_ticks):
         st["bound_by"] = max(bounds)[1]       # the largest tick's
         st["cull_keeps"] = sum(culls) / len(culls)
         if name == "swept_box_hits":
-            # both outcomes occur, so a kernel that never (or always) hits
-            # disagrees with the plain version above
-            check(0 < hits < total, f"{name}: the plain version gives "
-                  f"{hits}/{total} hits at ticks {check_ticks}; the "
-                  f"comparison could not fail")
+            # both outcomes occur at every call shape, so a kernel that
+            # never (or always) hits disagrees with the plain version above
+            for shape, sh in by_shape.items():
+                check(0 < sh["hits"] < sh["total"], f"{name} {shape}: the "
+                      f"plain version gives {sh['hits']}/{sh['total']} hits "
+                      f"at ticks {check_ticks}; the comparison could not "
+                      f"fail")
         # new kernel and v1 in turns: CUDA events, then the profiler
         fns = {"new": (k["kernel"], f"{name}_kernel"),
                "v1": (k["v1"], f"{name}_v1_kernel")}
@@ -322,7 +387,21 @@ def check_kernels(kernels, calls, check_ticks):
         st["device_us_per_tick"] = sum(dev["new"]) / 2
         st["v1_device_us_per_tick"] = sum(dev["v1"]) / 2
         st["share_of_bound"] = st["bound_us"] / st["device_us_per_tick"]
-        print(f"{name} per tick ({PER_TICK[name]} launches): turns "
+        st["by_shape"] = {}
+        for shape, sh in by_shape.items():
+            d_us = (device_us(k["kernel"], sh["calls"], f"{name}_kernel",
+                              PROFILE_REPS) / (PROFILE_REPS * n_ticks))
+            st["by_shape"][shape] = dict(
+                launches_per_tick=len(sh["calls"]) // n_ticks,
+                bound_us=sh["bound_us"], device_us_per_tick=d_us,
+                share_of_bound=sh["bound_us"] / d_us,
+                cull_keeps=sum(sh["cull"]) / len(sh["cull"]))
+            print(f"{name} {shape}: {len(sh['calls']) // n_ticks} launches "
+                  f"per tick, device {d_us:.2f} us/tick, bound "
+                  f"{sh['bound_us']:.2f} us, share of bound "
+                  f"{sh['bound_us'] / d_us!r}, cull keeps "
+                  f"{st['by_shape'][shape]['cull_keeps']:.4f}")
+        print(f"{name} per tick ({per_tick[name]} launches): turns "
               f"{'/'.join(TURNS)}: CUDA events "
               + "/".join(f"{m:.4f}" for m in (ms["v1"][0], ms["new"][0],
                                               ms["new"][1], ms["v1"][1]))
@@ -332,7 +411,8 @@ def check_kernels(kernels, calls, check_ticks):
               + f" us; bound {st['bound_us']:.2f} us ({st['bound_by']}); "
               f"share of bound {st['share_of_bound']!r}; cull keeps "
               f"{st['cull_keeps']:.4f}")
-        check(st["device_us_per_tick"] <= st["v1_device_us_per_tick"],
+        check(not require_faster
+              or st["device_us_per_tick"] <= st["v1_device_us_per_tick"],
               f"{name}: the redesign ({st['device_us_per_tick']:.2f} us/tick)"
               f" is slower than v1 ({st['v1_device_us_per_tick']:.2f} "
               f"us/tick)")
@@ -465,7 +545,8 @@ def main():
     adversarial_checks(torch, dev, kernels)
     paths = {"headline": headline_phase(np, torch, dev, entry, ops, kernels,
                                         card),
-             "fused": fused_phase(np, torch, dev, entry, ops, kernels, card)}
+             "fused": fused_phase(np, torch, dev, entry, ops, kernels, card),
+             "fleet": fleet_phase(np, torch, dev, entry, ops, kernels, card)}
 
     print(card)
     out = []
@@ -490,7 +571,9 @@ def main():
             "share_of_bound": bound / device,
             "v1_device_us_per_tick": total("v1_device_us_per_tick"),
             "v1_ms": total("v1_ms"),
-            "launches_per_tick": PER_TICK[name],
+            "launches_per_tick": {"headline": PER_TICK[name],
+                                  "fused": PER_TICK[name],
+                                  "fleet": FLEET_PER_TICK[name]},
             "paths": per})
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
@@ -912,6 +995,267 @@ def fused_phase(np, torch, dev, entry, ops, kernels, card):
     profile_ticks(step, FUSED_PROFILED_TICKS, kernels)
     print(f"fused peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    return {name: dict(launches=launches[name], **stats[name])
+            for name in kernels}
+
+
+def with_ring(name, args, robots):
+    """Collision-kernel arguments with the first 96 obstacles of
+    ``robots`` replaced by a ring of radius 0.45 m around the robot at
+    heights 0.1 and 0.35 m (the obstacles are robot-centered): every
+    rollout of theirs hits, the others' keep their own outcome."""
+    import math
+    import torch
+    if name != "swept_box_hits":
+        return args
+    axes, projc, step_valid, obs, obs_valid, half = args
+    ang = torch.arange(48, device=obs.device) * (2.0 * math.pi / 48)
+    ring = torch.stack([0.45 * torch.cos(ang), 0.45 * torch.sin(ang),
+                        torch.full_like(ang, 0.1)], dim=1)
+    ring = torch.cat([ring, ring + ring.new_tensor([0.0, 0.0, 0.25])])
+    obs, obs_valid = obs.clone(), obs_valid.clone()
+    rows = list(robots)
+    obs[rows, :96] = ring
+    obs_valid[rows, :96] = True
+    return axes, projc, step_valid, obs, obs_valid, half
+
+
+def fleet_phase(np, torch, dev, entry, ops, kernels, card):
+    """Steps 13-18: bench config 4's full-fidelity fleet at full width.
+    Returns {kernel name: dict(launches, and check_kernels' numbers)}."""
+    from dddmr_navigation_tpu_torch.parallel import fleet as tfleet
+    from dddmr_navigation_tpu_torch.state_estimation import pf
+    from tools.make_config4_golden import DRAW_KEYS, port_mcl_state
+
+    torch.cuda.reset_peak_memory_stats()
+    g = np.load(os.path.join(ROOT, "dddmr_navigation_tpu_torch", "testdata",
+                             "config4_golden.npz"))
+
+    # 13. build
+    t0 = time.perf_counter()
+    c4 = entry.config4_inputs(device=dev)
+    cfg, lp, p = c4.cfg, c4.cfg.local_planner, c4.cfg.perception
+    b, n = entry.CONFIG4_ROBOTS, c4.mcl.num_particles
+    ticks = entry.CONFIG4_TICKS + 1
+    print(f"fleet: config 4 built in {time.perf_counter() - t0:.2f} s: "
+          f"{b} robots, G={c4.fmap.nbr_idx.shape[0]} ground nodes, "
+          f"K={c4.fmap.nbr_idx.shape[1]}, window "
+          f"{p.voxel_window_cells_xy}x{p.voxel_window_cells_xy}x"
+          f"{p.voxel_window_cells_z}, {p.lidar.max_scan_points} scan points, "
+          f"{lp.generator.n_samples_padded} samples x "
+          f"{lp.generator.max_num_steps} steps, rotate 2 x "
+          f"{lp.rotate_generator.max_num_steps} steps, {n} particles, "
+          f"{c4.walls.shape[0]} wall points", flush=True)
+    inputs = [entry.config4_tick_inputs(c4, t, b) for t in range(ticks)]
+    gen = torch.Generator(device=dev).manual_seed(FLEET_SEED)
+    gen_draws = [pf.draw_mcl(gen, b, n, dev) for _ in range(ticks)]
+    gold_draws = [pf.MCLDraws(*(torch.as_tensor(g[k][t], device=dev)
+                                for k in DRAW_KEYS)) for t in range(ticks)]
+    state0 = entry.config4_state(c4, (
+        torch.as_tensor(g["init_pos_n"], device=dev),
+        torch.as_tensor(g["init_rpy_n"], device=dev)))
+
+    def run(draws=gen_draws, n_ticks=ticks, t0=0, state=state0, **kw):
+        return entry.run_fleet_full_chain(
+            c4, state, draws.__getitem__, n_ticks, t0=t0,
+            inputs_of=inputs.__getitem__, **kw)
+
+    # 14. the cold tick and 10 warm ticks through the kernels, then through
+    # the plain versions, closed loop from one state and one set of draws
+    reset_launches(ops)
+    chain, final = run()
+    torch.cuda.synchronize()
+    launches = read_launches(ops)
+    print(f"launches in the {ticks}-tick fleet chain: {launches}")
+    check(launches == {k: v * ticks for k, v in FLEET_PER_TICK.items()},
+          f"fleet launch counts {launches}, expected "
+          f"{ {k: v * ticks for k, v in FLEET_PER_TICK.items()} }")
+    with critics_calling(ops.swept_box_hits_plain,
+                         ops.masked_min_distance_plain):
+        plain, pfinal = run()
+    torch.cuda.synchronize()
+    check(read_launches(ops) == launches, "plain chain launched a kernel")
+    for f in FLEET_INT + FLEET_FLOAT:
+        check(torch.equal(chain[f], plain[f]), f"fleet chain {f} differs "
+              f"kernel vs plain: {torch.nonzero(chain[f] != plain[f])[:5]}")
+    check(torch.equal(final.mcl.particles.pos, pfinal.mcl.particles.pos)
+          and torch.equal(final.pos, pfinal.pos),
+          "fleet final state differs kernel vs plain")
+    check(all(bool(torch.isfinite(chain[f]).all()) for f in FLEET_FLOAT),
+          "non-finite fleet outputs")
+    dec = chain["decision"].cpu().numpy()
+    print(f"fleet chain: kernel and plain paths equal (integers and floats "
+          f"bit for bit); decisions per tick "
+          f"{[np.bincount(d, minlength=10).tolist() for d in dec[[0, -1]]]} "
+          f"(ticks 0 and {ticks - 1}); relaxation iterations "
+          f"{chain['wf_iters'][:, 0].tolist()}; mcl_err max "
+          f"{float(chain['mcl_err'].max()):.4f} m; travelled "
+          f"{float((final.pos - state0.pos).norm(dim=1).mean()):.3f} m")
+
+    # 15. against the golden chain, each tick started from the recorded
+    # true pose, twist and MCL state (teacher-forced), with its draws
+    def forced(t):
+        return dict(pos=torch.as_tensor(g["pos"][t], device=dev),
+                    quat=torch.as_tensor(g["quat"][t], device=dev),
+                    v=torch.as_tensor(g["v"][t], device=dev),
+                    w=torch.as_tensor(g["w"][t], device=dev),
+                    mcl=port_mcl_state(g, t, dev))
+    gold, _ = run(draws=gold_draws, forced=forced)
+    for f in FLEET_INT[:6]:
+        got = gold[f].cpu().numpy()
+        bad = np.argwhere(got != g[f][:ticks])
+        check(bad.size == 0, f"fleet {f} differs from JAX at (tick, robot) "
+              f"{bad[:5].tolist()}")
+    errs = {f: float(np.abs(gold[f].cpu().numpy() - g[f][:ticks]).max())
+            for f in FLEET_FLOAT}
+    print(f"golden fleet chain (teacher-forced on the recorded true poses "
+          f"and MCL states): decisions, command sources, planner states, "
+          f"plan_ok and iterations equal JAX's on all {ticks} x {b}; max "
+          f"diffs {errs}")
+    check(max(errs.values()) <= 1e-5, f"fleet floats off JAX: {errs}")
+
+    # 16. kernels against plain on two warm ticks' arguments, four robots'
+    # obstacles ringed so that every call shape holds both outcomes
+    recorder, calls = recorder_pair(FLEET_CHECK_TICKS, FLEET_PER_TICK)
+    with critics_calling(recorder("swept_box_hits", ops.swept_box_hits),
+                         recorder("masked_min_distance",
+                                  ops.masked_min_distance)):
+        run(n_ticks=max(FLEET_CHECK_TICKS) + 1)
+    torch.cuda.synchronize()
+    calls = {name: [(t, with_ring(name, a, FLEET_RING_ROBOTS))
+                    for t, a in cs] for name, cs in calls.items()}
+    stats = check_kernels(kernels, calls, FLEET_CHECK_TICKS, FLEET_PER_TICK,
+                          require_faster=False)
+
+    # 17. timing: the cold tick, then warm chains, CUDA events per tick
+    def timed_tick(state, t, draws=gen_draws):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = entry.config4_tick(c4, state, t, draws[t], inputs=inputs[t])
+        e1.record()
+        return out, (e0, e1)
+
+    cold = []
+    for _ in range(FLEET_COLD_REPS):
+        (state1, _), ev = timed_tick(state0, 0)
+        torch.cuda.synchronize()
+        cold.append(ev[0].elapsed_time(ev[1]))
+
+    def warm_chains(n_chains):
+        per_tick, wall = [], []
+        for _ in range(n_chains):
+            s_, events = state1, []
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            for t in range(1, ticks):
+                (s_, _), ev = timed_tick(s_, t)
+                events.append(ev)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - w0) / (ticks - 1) * 1e3)
+            per_tick += [a.elapsed_time(z) for a, z in events]
+        return np.asarray(per_tick), np.asarray(wall)
+
+    warm_chains(1)                                # warm-up
+    warm, wall = warm_chains(FLEET_CHAINS)
+    with critics_calling(ops.swept_box_hits_plain,
+                         ops.masked_min_distance_plain):
+        plain_warm, _ = warm_chains(1)
+    print(f"fleet cold tick ({b} robots, cold relaxation): "
+          f"{[round(c, 3) for c in cold]} ms, median "
+          f"{float(np.median(cold))!r} ms; warm tick (kernel path, "
+          f"n={warm.size}): median {float(np.median(warm))!r} ms, p95 "
+          f"{float(np.percentile(warm, 95))!r} ms, p99 "
+          f"{float(np.percentile(warm, 99))!r} ms, host wall per tick median "
+          f"{float(np.median(wall))!r} ms; plain path median "
+          f"{float(np.median(plain_warm))!r} ms (n={plain_warm.size}); "
+          f"card {card}")
+
+    # time between stage boundaries: the tick's own stages with an event
+    # between each (host-bound stages include the device's wait for the
+    # host)
+    stage_names = ("MCL", "perceive+prepare", "relaxation",
+                   "extraction+interpolation", "simple local",
+                   "rotate+recovery+FSM")
+    stage_events = []
+
+    def staged_tick(nav_cfg, mb_cfg, spec, ri, params, fmap, state, scans,
+                    masks, offset, goals, now, dt, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        ev[0].record()
+        loc = tfleet.fleet_localize(
+            state, dt, mcl_cfg=kw["mcl_cfg"], submap_ctx=kw["submap_ctx"],
+            odom_drift_pos=kw["odom_drift_pos"],
+            odom_drift_yaw=kw["odom_drift_yaw"],
+            feature_map_pts=kw["feature_map_pts"],
+            feature_ground_pts=kw["feature_ground_pts"],
+            mcl_draws=kw["mcl_draws"], feature_keys_=kw["feature_keys_"])
+        ev[1].record()
+        pre = tfleet.fleet_perceive(nav_cfg, spec, ri, params, fmap, state,
+                                    loc, scans, masks, offset, goals)
+        ev[2].record()
+        dist, iters = tfleet.fleet_relax(nav_cfg, fmap, pre)
+        ev[3].record()
+        res, stall, plans = tfleet.fleet_extract(nav_cfg, fmap, state, pre,
+                                                 dist, iters)
+        ev[4].record()
+        fused2, out = tfleet.fleet_simple_local(nav_cfg, state, loc, pre,
+                                                res, plans, masks, stall)
+        ev[5].record()
+        result = tfleet.fleet_decide(nav_cfg, mb_cfg, state, loc, fused2,
+                                     out, now, dt)
+        ev[6].record()
+        stage_events.append(ev)
+        return result
+
+    staged, _ = run(tick=staged_tick)
+    check(all(torch.equal(staged[f], chain[f]) for f in FLEET_INT),
+          "the staged fleet tick differs from fleet_full_tick")
+    stage_events.clear()
+    for _ in range(FLEET_CHAINS):
+        run(tick=staged_tick)
+    torch.cuda.synchronize()
+    per_stage = np.asarray([[ev[i].elapsed_time(ev[i + 1]) for i in range(6)]
+                            for ev in stage_events])
+    warm_stage = per_stage.reshape(FLEET_CHAINS, ticks, 6)[:, 1:]
+    print("fleet stages, median ms per warm tick over "
+          f"{warm_stage.shape[0] * warm_stage.shape[1]} ticks (CUDA events "
+          f"between stages): "
+          + "; ".join(f"{nm} {float(np.median(warm_stage[..., i])):.3f}"
+                      for i, nm in enumerate(stage_names))
+          + "; cold tick: "
+          + "; ".join(f"{nm} {float(np.median(per_stage.reshape(FLEET_CHAINS, ticks, 6)[:, 0, i])):.3f}"
+                      for i, nm in enumerate(stage_names)))
+
+    # host syncs in one warm tick
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            (_, diag1), _ = timed_tick(state1, 1)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    sites = {}
+    for w in syncs:
+        site = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+        sites[site] = sites.get(site, 0) + 1
+    print(f"host syncs in warm tick 1: {len(syncs)} (relaxation "
+          f"{int(diag1['wf_iters'][0])} iterations); by call site: "
+          + ", ".join(f"{k} x{v}" for k, v in sorted(
+              sites.items(), key=lambda kv: -kv[1])))
+
+    s_ = [state1, 1]
+
+    def step():                   # warm ticks 1, 2, ... in turn
+        t = s_[1]
+        s_[0], _ = entry.config4_tick(c4, s_[0], t, gen_draws[t],
+                                      inputs=inputs[t])
+        s_[1] += 1
+    profile_ticks(step, FLEET_PROFILED_TICKS, kernels)
+    print(f"fleet peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; card {card}")
     return {name: dict(launches=launches[name], **stats[name])
             for name in kernels}
 

@@ -14,11 +14,3 @@ run on the card unless given ``device="cpu"``. Every per-robot tensor has
 a leading robot axis B; map tables are shared.
 """
 
-
-def not_ported(name: str, what: str):
-    """A stand-in for the JAX package's ``name``, not ported yet: calling
-    it raises NotImplementedError naming it (ROADMAP.md, Queue 1)."""
-    def fn(*args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported yet ({what})")
-    fn.__name__ = fn.__qualname__ = name
-    return fn

@@ -12,8 +12,9 @@ consumes the previous stage's output on the device,
 The map tables (graph, ``MapContext``, turning tables) are shared by all
 robots; each robot has its own ``MarkingState`` and wavefront field. The
 batched tick equals the JAX package's ``vmap(fused_tick)`` robot for robot.
-Not ported yet, and raising ``NotImplementedError`` when asked for: depth
-cameras, the zone layers and the fleet (node-major) relaxation.
+The fleet tick of ``parallel/fleet.py`` runs the halves around one fleet
+relaxation. Not ported yet, and raising ``NotImplementedError`` when asked
+for: depth cameras and the zone layers.
 """
 from __future__ import annotations
 
@@ -26,7 +27,6 @@ import torch
 from dddmr_navigation_tpu_torch.config import NavigationConfig
 from dddmr_navigation_tpu_torch.geometry import (
     quat_rotate_fma, slope_aware_quat)
-from dddmr_navigation_tpu_torch import not_ported
 from dddmr_navigation_tpu_torch.ops.compaction import first_k_true_indices
 from dddmr_navigation_tpu_torch.perception.voxel import VoxelSpec
 from dddmr_navigation_tpu_torch.rounding import fma_norm, recip
@@ -451,5 +451,14 @@ def make_fused_tick(nav_cfg: NavigationConfig,
             spec, ri_spec, params)
 
 
-fleet_interpolate_path_device = not_ported(
-    "fleet_interpolate_path_device", "the fleet's flat-scatter interpolation")
+def fleet_interpolate_path_device(ground, res: GlobalPathResult, *,
+                                  max_plan_len: int, interp_steps: int = 19,
+                                  min_emit: float = 0.1) -> GlobalPlan:
+    """The fleet's path interpolation (`fused.py:477-536`). The JAX
+    package writes it apart from the vmapped per-robot one to compact all
+    robots' poses with one flat scatter; :func:`interpolate_path_device`
+    is robot-batched with one scatter already, with the same emissions and
+    constants, so it is this function."""
+    return interpolate_path_device(ground, res, max_plan_len=max_plan_len,
+                                   interp_steps=interp_steps,
+                                   min_emit=min_emit)

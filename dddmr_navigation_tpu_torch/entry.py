@@ -12,6 +12,12 @@
   — the fused perception → replan → local tick of ``bench.py::bench_config3``
   on the multi-level map (3,116 ground nodes, a 96×96×44 window, a 16×1000
   lidar, 64×128 samples of 40 steps), and a chain of such ticks.
+* :func:`config4_config` / :func:`config4_world` / :func:`config4_inputs` /
+  :func:`config4_state` / :func:`run_fleet_full_chain` — the full-fidelity
+  fleet of ``bench.py::bench_config4``: 64 robots localizing with MCL on
+  drifting odometry, mark/clear, one turning-wavefront relaxation for the
+  fleet, the simple and rotate generators, the move-base FSM and the
+  rotate recovery, on a 12×8 m warehouse floor (1,617 ground nodes).
 """
 from __future__ import annotations
 
@@ -22,8 +28,10 @@ import torch
 
 from dddmr_navigation_tpu_torch.config import (
     DDSimpleGeneratorConfig, GlobalPlannerConfig, LocalPlannerConfig,
-    NavigationConfig, PerceptionConfig, SpinningLidarConfig)
-from dddmr_navigation_tpu_torch.io.maps import multi_level_map
+    MCLConfig, MoveBaseConfig, NavigationConfig, PerceptionConfig,
+    SpinningLidarConfig)
+from dddmr_navigation_tpu_torch.io.maps import (
+    box_obstacle, flat_ground_map, multi_level_map)
 from dddmr_navigation_tpu_torch.control.fused import (
     build_fused_map, init_fused_state, make_fused_tick)
 from dddmr_navigation_tpu_torch.geometry import quat_from_yaw
@@ -31,7 +39,10 @@ from dddmr_navigation_tpu_torch.perception.static_weights import (
     compute_node_weights)
 from dddmr_navigation_tpu_torch.utils.lidar_sim import BoxWorld, simulate_scan
 from dddmr_navigation_tpu_torch.parallel.fleet import (
-    FleetState, fleet_tick, integrate_fleet)
+    FleetState, feature_keys, fleet_full_tick, fleet_tick,
+    init_fleet_full_state, integrate_fleet)
+from dddmr_navigation_tpu_torch.state_estimation.likelihood import (
+    build_submap_context)
 from dddmr_navigation_tpu_torch.planning.local.planner import (
     compute_velocity_command, make_global_plan)
 
@@ -298,3 +309,202 @@ def run_fused_chain(c3: Config3, state, scans, scan_masks, positions, quats,
         wf_iters=stack("wf_iters"),
         composed_first=outs[0].composed_dgraph,
         composed_last=outs[-1].composed_dgraph, final=state)
+
+
+# ---------------------------------------------------------------------------
+# config 4: the full-fidelity fleet (bench.py:721-908)
+# ---------------------------------------------------------------------------
+
+CONFIG4_ROBOTS = 64
+CONFIG4_TICKS = 10                      # warm ticks after the cold one
+CONFIG4_DT = 0.1
+CONFIG4_OFFSET = (0.0, 0.0, 0.3)        # lidar above the base
+CONFIG4_DRIFT_DIR = (0.7, 0.7, 0.0)     # odometry drift, 0.01 m per tick
+
+
+def config4_config(linear_samples: int = 16, angular_samples: int = 16,
+                   max_num_steps: int = 40, obstacles_n: int = 512,
+                   near_k: int = 128, scan_points: int = 2048,
+                   window_xy: int = 64, window_z: int = 24,
+                   marked_voxels: int = 512, window_nodes: int = 2048,
+                   max_relax_iters: int = 192, particles: int = 60):
+    """``bench_config4``'s (NavigationConfig, MoveBaseConfig, MCLConfig)
+    (the defaults: 16×16 samples of 40 steps, 512 obstacles, near-K 128,
+    2,048 scan points, a 64×64×24 window with 512 marked voxels and 2,048
+    window nodes, cluster pool 2; turning weight 0.1 with 256 long edges, 8
+    LOS samples, 512 lethal points and 192 relaxation iterations; 60
+    particles in ``corr`` mode); smaller values cut it to a test's size."""
+    lidar = SpinningLidarConfig(
+        scan_effective_positive_start=0.0, scan_effective_negative_start=0.0,
+        max_scan_points=scan_points)
+    cfg = NavigationConfig(
+        perception=PerceptionConfig(
+            lidar=lidar, voxel_window_cells_xy=window_xy,
+            voxel_window_cells_z=window_z, max_marked_voxels=marked_voxels,
+            max_window_nodes=window_nodes, cluster_pool=2),
+        local_planner=LocalPlannerConfig(
+            generator=DDSimpleGeneratorConfig(
+                linear_x_sample=linear_samples,
+                angular_z_sample=angular_samples,
+                max_num_steps=max_num_steps),
+            max_obstacle_points=obstacles_n, collision_obstacle_chunk=16,
+            collision_near_k=near_k),
+        global_planner=GlobalPlannerConfig(
+            turning_weight=0.1, max_long_edges=256, los_samples=8,
+            max_lethal_points=512, max_relax_iters=max_relax_iters,
+            relax_iters_per_tick=0))
+    mcl = MCLConfig(num_particles=particles, init_var_x=0.3, init_var_y=0.3,
+                    init_var_z=0.1, init_var_yaw=0.1, field_sampling="corr")
+    return cfg, MoveBaseConfig(), mcl
+
+
+class Config4World(NamedTuple):
+    """The bench's world and start, as numpy."""
+    ground: np.ndarray        # (G, 3) ground nodes
+    walls: np.ndarray         # (W, 3) warehouse walls (map and MCL features)
+    positions: np.ndarray     # (B, 3) start poses
+    quats: np.ndarray         # (B, 4)
+    goals: np.ndarray         # (B, 3)
+    scans: np.ndarray         # (B, N, 3) each robot's sweep, sensor frame
+    masks: np.ndarray         # (B, N)
+
+
+def config4_world(robots: int = CONFIG4_ROBOTS,
+                  scan_points: int = 2048) -> Config4World:
+    """The bench's warehouse: a 12×8 m floor at 0.25 m, its four walls,
+    robots in a column at x = -4 heading for x = 4, each sweeping one
+    0.2 m box ahead-left of its start (the sweep is the same every tick)."""
+    ground = flat_ground_map(12, 8, 0.25)
+    walls = np.concatenate([
+        box_obstacle([-5.6, 0.0, 0.0], size=(0.3, 7.4, 1.2), resolution=0.15),
+        box_obstacle([5.6, 0.0, 0.0], size=(0.3, 7.4, 1.2), resolution=0.15),
+        box_obstacle([0.0, -3.6, 0.0], size=(11.0, 0.3, 1.2),
+                     resolution=0.15),
+        box_obstacle([0.0, 3.6, 0.0], size=(11.0, 0.3, 1.2),
+                     resolution=0.15),
+    ]).astype(np.float32)
+    b = robots
+    lane = 0.1 * (np.arange(b) - b / 2)
+    positions = np.stack([np.full(b, -4.0), lane, np.zeros(b)],
+                         1).astype(np.float32)
+    goals = np.stack([np.full(b, 4.0), lane, np.zeros(b)],
+                     1).astype(np.float32)
+    quats = np.tile(np.asarray([[0.0, 0.0, 0.0, 1.0]], np.float32), (b, 1))
+    scans = np.zeros((b, scan_points, 3), np.float32)
+    masks = np.zeros((b, scan_points), bool)
+    for i in range(b):
+        box = box_obstacle([positions[i, 0] + 0.8, positions[i, 1] + 0.55,
+                            0.0], size=(0.2, 0.2, 1.0), resolution=0.1)
+        rel = box - (positions[i] + np.asarray(CONFIG4_OFFSET))
+        scans[i, :len(rel)] = rel[:scan_points]
+        masks[i, :min(len(rel), scan_points)] = True
+    return Config4World(ground, walls, positions, quats, goals, scans, masks)
+
+
+def config4_drift(t: int, robots: int = CONFIG4_ROBOTS):
+    """Tick ``t``'s odometry drift (B, 3), drift yaw (B,) and clock, in f32
+    as the bench computes them: 0.01·t m along (0.7, 0.7, 0), t·0.1 s."""
+    d = (np.float32(0.01) * np.float32(t)) * np.asarray(CONFIG4_DRIFT_DIR,
+                                                       np.float32)
+    return (np.tile(d, (robots, 1)), np.zeros((robots,), np.float32),
+            np.float32(t) * np.float32(CONFIG4_DT))
+
+
+class Config4(NamedTuple):
+    cfg: NavigationConfig
+    mb: MoveBaseConfig
+    mcl: MCLConfig
+    world: Config4World
+    fmap: object              # control.fused.FusedMap
+    submap: object            # state_estimation.likelihood.SubmapContext
+    specs: tuple              # (VoxelSpec, RangeImageSpec, MarkingParams)
+    walls: torch.Tensor       # (W, 3) feature map points
+    ground: torch.Tensor      # (G, 3) feature ground points
+    keys: tuple               # their feature-order keys
+    scans: torch.Tensor       # (B, N, 3)
+    masks: torch.Tensor       # (B, N)
+    goals: torch.Tensor       # (B, 3)
+    offset: torch.Tensor      # (3,)
+
+
+def config4_inputs(configs=None, world=None, device="cuda") -> Config4:
+    """The shared map, submap and tensors of ``bench_config4`` (or of the
+    given ``configs`` = (cfg, mb, mcl) and ``world``) on ``device``."""
+    cfg, mb, mcl = configs if configs is not None else config4_config()
+    w = world if world is not None else config4_world(
+        scan_points=cfg.perception.lidar.max_scan_points)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), device=device)
+    walls, ground = t(w.walls), t(w.ground)
+    return Config4(
+        cfg=cfg, mb=mb, mcl=mcl, world=w,
+        fmap=build_fused_map(cfg, w.ground, w.walls, device=device),
+        submap=build_submap_context(w.walls, w.ground, mcl, device=device),
+        specs=make_fused_tick(cfg)[1:], walls=walls, ground=ground,
+        keys=(feature_keys(len(w.walls), device),
+              feature_keys(len(w.ground), device)),
+        scans=t(w.scans), masks=t(w.masks), goals=t(w.goals),
+        offset=t(np.asarray(CONFIG4_OFFSET, np.float32)))
+
+
+def config4_state(c4: Config4, mcl_normals):
+    """The start state: every robot at rest at its start, its filter's
+    particles spread by ``mcl_normals`` (two (B, N, 3) unit-normal
+    tensors, see ``state_estimation.mcl.init_draws``)."""
+    return init_fleet_full_state(
+        c4.cfg, len(c4.world.ground), c4.world.positions, c4.world.quats,
+        mcl_cfg=c4.mcl, mcl_normals=mcl_normals,
+        device=c4.fmap.ground.device)
+
+
+def config4_tick_inputs(c4: Config4, t: int, robots: int) -> dict:
+    """Tick ``t``'s clock, time step and odometry drift as tensors on the
+    config's device: the keyword arguments :func:`config4_tick` adds."""
+    dev = c4.fmap.ground.device
+    drift, drift_yaw, now = config4_drift(t, robots)
+    return dict(now=torch.tensor(now, device=dev),
+                dt=torch.tensor(np.float32(CONFIG4_DT), device=dev),
+                odom_drift_pos=torch.as_tensor(drift, device=dev),
+                odom_drift_yaw=torch.as_tensor(drift_yaw, device=dev))
+
+
+def config4_tick(c4: Config4, state, t: int, draws, tick=None, inputs=None):
+    """Tick ``t`` of the chain from ``state`` with this tick's MCL draws
+    (``state_estimation.pf.MCLDraws``) and :func:`config4_tick_inputs`
+    (made here unless given); ``tick`` replaces
+    ``parallel.fleet.fleet_full_tick``. Returns (state, diag)."""
+    if inputs is None:
+        inputs = config4_tick_inputs(c4, t, state.pos.shape[0])
+    spec, ri, params = c4.specs
+    return (tick or fleet_full_tick)(
+        c4.cfg, c4.mb, spec, ri, params, c4.fmap, state, c4.scans, c4.masks,
+        c4.offset, c4.goals, mcl_cfg=c4.mcl, submap_ctx=c4.submap,
+        feature_map_pts=c4.walls, feature_ground_pts=c4.ground,
+        mcl_draws=draws, feature_keys_=c4.keys, **inputs)
+
+
+FLEET_DIAG = ("decision", "cmd_source", "ps_simple", "ps_rotate", "plan_ok",
+              "wf_iters", "vx", "wz", "plan_pos", "plan_yaw", "mcl_err",
+              "best_index", "recovery_active")
+
+
+def run_fleet_full_chain(c4: Config4, state, draws_of, ticks: int,
+                         t0: int = 0, tick=None, forced=None, inputs_of=None):
+    """``ticks`` chained full ticks from tick ``t0``: tick t draws from
+    ``draws_of(t)``. ``forced(t)``, when given, returns a dict of
+    FleetFullState fields (the true pose and twist, the MCL state) to put
+    in place before tick t, or None: the teacher forcing of a chain held
+    against a recorded one. ``inputs_of(t)`` gives tick t's
+    :func:`config4_tick_inputs` (made per tick when not given). Returns
+    ({name: (T, B, ...) tensor} for :data:`FLEET_DIAG`, final state)."""
+    outs = {k: [] for k in FLEET_DIAG}
+    for t in range(t0, t0 + ticks):
+        f = forced(t) if forced is not None else None
+        if f:
+            state = state._replace(**f)
+        state, diag = config4_tick(c4, state, t, draws_of(t), tick,
+                                   inputs_of(t) if inputs_of else None)
+        for k in FLEET_DIAG:
+            outs[k].append(diag[k])
+    return {k: torch.stack(v) for k, v in outs.items()}, state

@@ -1,6 +1,6 @@
 """Quaternion math on tensors, the counterpart of
-``dddmr_navigation_tpu/geometry/se3.py`` for the functions the local-planner
-tick uses.
+``dddmr_navigation_tpu/geometry/se3.py`` for the functions the ported ticks
+use.
 
 Quaternions are ``(x, y, z, w)`` (tf2 layout). Every function broadcasts over
 leading batch dimensions and keeps the operation order of the JAX version, so
@@ -10,7 +10,13 @@ from __future__ import annotations
 
 import torch
 
-from dddmr_navigation_tpu_torch.rounding import fma
+from dddmr_navigation_tpu_torch.rounding import fma, fma_norm
+
+
+def quat_normalize(q):
+    """q / ‖q‖; the norm rounded as the jitted ``jnp.linalg.norm`` (an FMA
+    chain, then a correctly rounded square root)."""
+    return q / fma_norm(q)[..., None]
 
 
 def quat_multiply(q1, q2):
@@ -29,7 +35,8 @@ def quat_multiply(q1, q2):
 
 
 def quat_conjugate(q):
-    return q * q.new_tensor([-1.0, -1.0, -1.0, 1.0])
+    """(-x, -y, -z, w), without a copy of constants to the device."""
+    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
 
 
 def quat_rotate(q, v):
@@ -75,9 +82,22 @@ def yaw_from_quat(q):
     return torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
 
 
+def rpy_from_quat(q):
+    """(roll, pitch, yaw) as tf2 Matrix3x3::getEulerYPR gives them."""
+    x, y, z, w = q.unbind(-1)
+    roll = torch.atan2(2.0 * (w * x + y * z), 1.0 - 2.0 * (x * x + y * y))
+    pitch = torch.asin(torch.clamp(2.0 * (w * y - z * x), -1.0, 1.0))
+    yaw = torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
+    return roll, pitch, yaw
+
+
 def normalize_angle(a):
     """Wrap to (-pi, pi]."""
     return torch.atan2(torch.sin(a), torch.cos(a))
+
+
+def shortest_angular_distance(a_from, a_to):
+    return normalize_angle(a_to - a_from)
 
 
 def slope_aware_quat(v):
@@ -112,6 +132,22 @@ def quat_rotate_fma(q, v):
     qv = qv.expand(torch.broadcast_shapes(qv.shape, v.shape))
     t = 2.0 * _cross_fma(qv, v)
     return fma(qw, t, v) + _cross_fma(qv, t)
+
+
+def quat_multiply_fma(q1, q2):
+    """:func:`quat_multiply` rounded as the JAX package's jitted
+    quat_multiply is on the CPU: each component a chain of fused
+    multiply-adds starting from w1's product (``fma(w1, x2, x1·w2)``, then
+    the remaining products in order). MCL looks up correspondence cells
+    from poses composed with it, so an ulp there can move a cell."""
+    x1, y1, z1, w1 = q1.unbind(-1)
+    x2, y2, z2, w2 = q2.unbind(-1)
+    return torch.stack([
+        fma(-z1, y2, fma(y1, z2, fma(w1, x2, x1 * w2))),
+        fma(z1, x2, fma(y1, w2, fma(w1, y2, -(x1 * z2)))),
+        fma(z1, w2, fma(-y1, x2, fma(w1, z2, x1 * y2))),
+        fma(-z1, z2, fma(-y1, y2, fma(w1, w2, -(x1 * x2)))),
+    ], dim=-1)
 
 
 def _cross_fma(a, b):

@@ -8,6 +8,9 @@ device: nested NamedTuples and dataclasses field by field, by the port
 class's annotations. :func:`to_numpy` turns port outputs back into numpy.
 :func:`config_from` rebuilds one of the port's config dataclasses from a
 config of the same field names (the JAX package's, say), by name alone.
+:func:`fleet_full_state_from` builds the full fleet tick's state (its FSM,
+recovery and MCL states included; the JAX filter's random key is dropped,
+since the port takes its draws as arguments).
 """
 from __future__ import annotations
 
@@ -100,3 +103,28 @@ def config_from(obj):
             value = config_from(value)
         out[f.name] = value
     return cls(**out)
+
+
+def fleet_full_state_from(src, device):
+    """The port's ``parallel.fleet.FleetFullState`` from the same-named
+    fields of ``src`` (the JAX package's FleetFullState read out with
+    ``np.asarray``): the fused, FSM, recovery and MCL states through
+    :func:`to_port` into their port classes, the rest as tensors."""
+    from dddmr_navigation_tpu_torch.control.fsm import FSMState
+    from dddmr_navigation_tpu_torch.control.fused import FusedState
+    from dddmr_navigation_tpu_torch.control.recovery import (
+        RotateRecoveryState)
+    from dddmr_navigation_tpu_torch.parallel.fleet import FleetFullState
+    from dddmr_navigation_tpu_torch.state_estimation.mcl import MCLState
+    sub = {"fused": FusedState, "fsm": FSMState,
+           "recovery": RotateRecoveryState, "mcl": MCLState}
+    out = {}
+    for name in FleetFullState._fields:
+        value = getattr(src, name)
+        if value is None:
+            out[name] = None
+        elif name in sub:
+            out[name] = to_port(value, sub[name], device)
+        else:
+            out[name] = tensor(value, device)
+    return FleetFullState(**out)

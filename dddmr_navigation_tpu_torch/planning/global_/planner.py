@@ -12,7 +12,6 @@ from typing import NamedTuple
 import torch
 
 from dddmr_navigation_tpu_torch.config import GlobalPlannerConfig
-from dddmr_navigation_tpu_torch import not_ported
 from dddmr_navigation_tpu_torch.rounding import fma_norm
 from dddmr_navigation_tpu_torch.planning.global_.los import long_edge_los_mask
 from dddmr_navigation_tpu_torch.planning.global_.wavefront import (
@@ -152,5 +151,17 @@ def plan_on_graph(cfg: GlobalPlannerConfig, graph_idx, graph_dist, graph_valid,
                        turn_pen=turn_pen, wf_bins=bins)
 
 
-fleet_plan_finish = not_ported(
-    "fleet_plan_finish", "the fleet's node-major extraction")
+def fleet_plan_finish(cfg: GlobalPlannerConfig, graph_idx, graph_dist,
+                      ground, prep_r: PlanPrep, dist_r, iters, *,
+                      turn_pen=None, wf_bins=None,
+                      stall_reset=None) -> GlobalPathResult:
+    """:func:`plan_finish` after a fleet relaxation, whose one iteration
+    count ``iters`` (a () tensor) every robot reports and whose carry reset
+    (a stall at ``max_relax_iters``) then holds for every robot."""
+    b = prep_r.start_idx.shape[0]
+    iters_r = iters.expand(b)
+    if stall_reset is None:
+        stall_reset = iters_r >= cfg.max_relax_iters
+    return plan_finish(cfg, graph_idx, graph_dist, ground, prep_r, dist_r,
+                       iters_r, turn_pen=turn_pen, wf_bins=wf_bins,
+                       stall_reset=stall_reset)

@@ -23,7 +23,6 @@ from typing import NamedTuple
 import torch
 
 from dddmr_navigation_tpu_torch.rounding import exp_fma, fma_norm
-from dddmr_navigation_tpu_torch import not_ported
 from dddmr_navigation_tpu_torch.ops.fixpoint import iterate_to_fixpoint
 
 
@@ -282,11 +281,80 @@ def extract_path(nbr_idx, nbr_dist, nbr_valid, enter_cost, dist, start_idx,
     return idxs, valids, length, ok
 
 
-# The fleet's node-major relaxations and extractions (`wavefront.py:253-380`,
-# `:502-640`) are a different algorithm from the robot-batched ones above.
-_FLEET = "the fleet's node-major relaxation and extraction"
-fleet_wavefront_distances_turning = not_ported(
-    "fleet_wavefront_distances_turning", _FLEET)
-fleet_wavefront_distances = not_ported("fleet_wavefront_distances", _FLEET)
-fleet_extract_path_turning = not_ported("fleet_extract_path_turning", _FLEET)
-fleet_extract_path = not_ported("fleet_extract_path", _FLEET)
+# ---------------------------------------------------------------------------
+# the fleet's relaxations and extractions (`wavefront.py:253-380`, `:502-640`)
+# ---------------------------------------------------------------------------
+
+def fleet_wavefront_distances_turning(nbr_idx, nbr_dist, nbr_valid_r,
+                                      enter_cost_r, avg_intensity,
+                                      goal_idx_r, turning_weight: float, *,
+                                      az, bin_of_edge, n_dir_bins: int = 16,
+                                      max_iters: int = 512, dist0_r=None):
+    """The direction-expanded relaxation of a fleet sharing one graph,
+    with one iteration count for all robots.
+
+    The JAX package lays the fleet's fields out node-major so that one
+    gather fetches every robot's bins (a TPU gather-count saving); the
+    update is the per-robot Bellman operator element for element, which is
+    :func:`wavefront_distances_turning`'s, so the fields are its fields.
+    The joint loop runs until no robot changes, so its count is the
+    largest per-robot count (a converged robot is a fixpoint of the
+    operator). Args as there, per robot (R, ...). Returns (dist (R, G, B),
+    iters () int32)."""
+    dist, _, iters = wavefront_distances_turning(
+        nbr_idx, nbr_dist, nbr_valid_r, enter_cost_r, avg_intensity,
+        goal_idx_r, None, turning_weight, n_dir_bins=n_dir_bins,
+        max_iters=max_iters, dist0=dist0_r, az=az, bin_of_edge=bin_of_edge)
+    return dist, iters.amax()
+
+
+def fleet_wavefront_distances(nbr_idx, nbr_dist, nbr_valid_r, enter_cost_r,
+                              avg_intensity, goal_idx_r, *,
+                              max_iters: int = 512, dist0_r=None):
+    """The plain (turning_weight == 0) relaxation of a fleet sharing one
+    graph, as the JAX package writes it: relaxing the potential
+    F = dist + enter, so that the entry cost is a per-node constant added
+    after the min, then one exact dist-space pass (finite dist at lethal
+    nodes included). Its rounding differs from
+    :func:`wavefront_distances`'. Per robot (R, ...); returns (dist (R, G),
+    iters () int32)."""
+    g = nbr_idx.shape[0]
+    safe = torch.clamp(nbr_idx, min=0).long()
+    goal = _goal_mask(goal_idx_r, g)                             # (R, G)
+    dist0 = (torch.full_like(enter_cost_r, torch.inf) if dist0_r is None
+             else dist0_r)
+    dist0 = torch.where(goal, 0.0, dist0)
+    c_node = enter_cost_r + avg_intensity
+    f0 = torch.where(goal, enter_cost_r, dist0 + enter_cost_r)
+
+    def relax(f):
+        cand = torch.where(nbr_valid_r, f[:, safe] + nbr_dist, torch.inf)
+        return torch.where(goal, enter_cost_r, cand.amin(dim=2) + c_node)
+
+    f, iters = iterate_to_fixpoint(relax, f0, max_iters)
+    cand = torch.where(nbr_valid_r,
+                       f[:, safe] + nbr_dist + avg_intensity[:, None],
+                       torch.inf)
+    return torch.where(goal, 0.0, cand.amin(dim=2)), iters.amax()
+
+
+def fleet_extract_path_turning(nbr_idx, nbr_dist, nbr_valid_r, enter_cost_r,
+                               dist_r, bin_of_edge, start_idx_r, goal_idx_r,
+                               turn_pen, *, max_len: int = 512):
+    """The fleet's successor-table extraction over direction-expanded
+    fields. The JAX package's node-major layout is a TPU gather layout;
+    the candidates, argmins and walk are :func:`extract_path_turning`'s,
+    element for element. Returns (idxs (R, L), valids (R, L), length (R,),
+    ok (R,))."""
+    return extract_path_turning(
+        nbr_idx, nbr_dist, nbr_valid_r, enter_cost_r, dist_r, bin_of_edge,
+        start_idx_r, goal_idx_r, None, 0.0, max_len=max_len,
+        turn_pen=turn_pen)
+
+
+def fleet_extract_path(nbr_idx, nbr_dist, nbr_valid_r, enter_cost_r, dist_r,
+                       start_idx_r, goal_idx_r, *, max_len: int = 512):
+    """The fleet's node-table extraction over plain (R, G) fields:
+    :func:`extract_path`'s candidates and walk, element for element."""
+    return extract_path(nbr_idx, nbr_dist, nbr_valid_r, enter_cost_r, dist_r,
+                        start_idx_r, goal_idx_r, max_len=max_len)

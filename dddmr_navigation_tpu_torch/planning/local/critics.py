@@ -11,6 +11,7 @@ rejects the trajectory; otherwise scores accumulate.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -19,6 +20,7 @@ from dddmr_navigation_tpu_torch.config import CriticsConfig, CuboidConfig
 from dddmr_navigation_tpu_torch.geometry import (
     quat_rotate, quat_conjugate, quat_multiply, yaw_from_quat)
 from dddmr_navigation_tpu_torch.ops import swept_box_hits, masked_min_distance
+from dddmr_navigation_tpu_torch.rounding import fma_dot
 from dddmr_navigation_tpu_torch.planning.local.rollout import (
     Rollouts, end_positions, end_quats)
 
@@ -41,7 +43,13 @@ def cuboid_box(cuboid: CuboidConfig, device):
     """The footprint's oriented box in the base frame, in f32: unit axes
     (3, 3) from dx=c[3]-c[0], dy=c[1]-c[0], dz=c[2]-c[0]; center (3,) as
     the mean of the corners; half extents as three floats. The same f32
-    half extents go to the kernel and to the plain version."""
+    half extents go to the kernel and to the plain version. Built once
+    per footprint and device: a copy to the card is a host sync."""
+    return _cuboid_box(cuboid, str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=None)
+def _cuboid_box(cuboid: CuboidConfig, device: str):
     corners = torch.tensor(cuboid.corners(), dtype=torch.float32)
     center = torch.mean(corners, dim=0)
     d = torch.stack([corners[3] - corners[0], corners[1] - corners[0],
@@ -97,6 +105,43 @@ def collision_scores(r: Rollouts, cuboid: CuboidConfig, obstacles, obs_valid,
 
     hit = swept_box_hits(axes_g, proj_c, r.step_valid,
                          obstacles - r.robot_pos[:, None, :], obs_valid, half)
+    return torch.where(enough[:, None] & hit, -1.0, 0.0)
+
+
+def collision_min_max_scores(r: Rollouts, cuboid: CuboidConfig, obstacles,
+                             obs_valid, obstacle_chunk: int = 256):
+    """`CollisionMinMaxModel::scoreTrajectory`
+    (`collision_min_max_model.cpp:51-89`), plain PyTorch as the JAX package
+    leaves it to XLA: -1 when a valid obstacle within 1 m of a rollout pose
+    lies inside the axis-aligned bounding box of that step's transformed
+    footprint cuboid; 0 otherwise; 0 when fewer than 5 points.
+
+    Args: obstacles (B, M, 3), obs_valid (B, M). Returns (B, S) f32.
+    """
+    enough = obs_valid.sum(dim=1) >= 5
+    corners = torch.tensor(cuboid.corners(), dtype=torch.float32,
+                           device=obstacles.device)              # (8, 3)
+    cth, sth = torch.cos(r.theta), torch.sin(r.theta)           # (B,S,N)
+    q = r.robot_quat[:, None, None, :]
+
+    def corner_g(c):   # corner c by Rz(theta), then robot_quat
+        v = torch.stack([cth * c[0] - sth * c[1], sth * c[0] + cth * c[1],
+                         c[2].expand(cth.shape)], dim=-1)
+        return quat_rotate(q, v)                                 # (B,S,N,3)
+
+    rel = r.positions - r.robot_pos[:, None, None, :]            # (B,S,N,3)
+    cg = torch.stack([rel + corner_g(corners[i]) for i in range(8)], dim=3)
+    lo, hi = cg.amin(dim=3), cg.amax(dim=3)                      # (B,S,N,3)
+    obs = obstacles - r.robot_pos[:, None, :]
+    hit = torch.zeros(r.valid.shape, dtype=torch.bool, device=obs.device)
+    for c0 in range(0, obs.shape[1], obstacle_chunk):
+        pts = obs[:, None, None, c0:c0 + obstacle_chunk]        # (B,1,1,C,3)
+        near = fma_dot(pts - rel[..., None, :], pts - rel[..., None, :]) <= 1.0
+        inside = ((pts >= lo[..., None, :]) & (pts <= hi[..., None, :])
+                  ).all(dim=-1)
+        bad = (inside & near & obs_valid[:, None, None, c0:c0 + obstacle_chunk]
+               & r.step_valid[..., None])
+        hit |= bad.flatten(2).any(dim=2)
     return torch.where(enough[:, None] & hit, -1.0, 0.0)
 
 
@@ -162,14 +207,12 @@ def twirling_scores(r: Rollouts, weight: float):
 
 def score_rollouts(critics: CriticsConfig, cuboid: CuboidConfig, r: Rollouts,
                    plan: PrunePlan, obstacles, obs_valid, heading_deviation,
-                   collision_near_k: int = 0):
+                   collision_near_k: int = 0, obstacle_chunk: int = 256):
     """Run the configured critic stack; returns (costs, rejected), (B, S).
 
     ``costs`` is the summed score of accepted rollouts; rejected rollouts
     carry their first negative critic value. Invalid rollouts are rejected
     with -1."""
-    if critics.collision_min_max is not None:
-        raise NotImplementedError("collision_min_max is not ported yet")
     total = torch.zeros(r.valid.shape, dtype=torch.float32,
                         device=r.valid.device)
     neg_val = torch.zeros_like(total)
@@ -187,6 +230,10 @@ def score_rollouts(critics: CriticsConfig, cuboid: CuboidConfig, r: Rollouts,
         apply(collision_scores(r, cuboid, obstacles, obs_valid,
                                near_k=collision_near_k)
               * critics.collision.weight)
+    if critics.collision_min_max is not None:
+        apply(collision_min_max_scores(r, cuboid, obstacles, obs_valid,
+                                       obstacle_chunk=obstacle_chunk)
+              * critics.collision_min_max.weight)
     if critics.stick_path is not None:
         apply(stick_path_scores(r, plan, 1.0) * critics.stick_path.weight)
     if critics.pure_pursuit is not None:

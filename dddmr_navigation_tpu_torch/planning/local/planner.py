@@ -15,8 +15,11 @@ from typing import NamedTuple
 import torch
 
 from dddmr_navigation_tpu_torch.config import LocalPlannerConfig
-from dddmr_navigation_tpu_torch.geometry import slope_aware_quat
-from dddmr_navigation_tpu_torch.planning.local.sampler import dd_simple_samples
+from dddmr_navigation_tpu_torch.geometry import (
+    normalize_angle, quat_conjugate, quat_multiply, slope_aware_quat,
+    yaw_from_quat)
+from dddmr_navigation_tpu_torch.planning.local.sampler import (
+    dd_simple_samples, omni_simple_samples, rotate_inplace_samples)
 from dddmr_navigation_tpu_torch.planning.local.rollout import Rollouts, rollout
 from dddmr_navigation_tpu_torch.planning.local.critics import (
     PrunePlan, _norm, score_rollouts, best_trajectory)
@@ -76,15 +79,19 @@ def _take_rows(x, idx):
     return x[torch.arange(x.shape[0], device=x.device), idx]
 
 
-def prune_plan(cfg: LocalPlannerConfig, plan: GlobalPlan, robot_pos):
+def prune_plan(cfg: LocalPlannerConfig, plan: GlobalPlan, robot_pos,
+               forward_distance=None, backward_distance=None):
     """`Local_Planner::prunePlan` (`local_planner.cpp:374-445`) without the
     KD-tree: nearest plan pose by argmin, then an arc-length window
-    (inclusive of the first pose crossing the distance budget).
+    (inclusive of the first pose crossing the distance budget). The
+    distances default to the config's prune distances.
 
     Returns (PrunePlan, ok (B,)). ok=False ⇒ PRUNE_PLAN_FAIL (deviation
     > 1 m or plan shorter than 3 poses).
     """
-    fwd, bwd = cfg.forward_prune, cfg.backward_prune
+    fwd = cfg.forward_prune if forward_distance is None else forward_distance
+    bwd = (cfg.backward_prune if backward_distance is None
+           else backward_distance)
     b, L, _ = plan.positions.shape
     P = cfg.max_prune_len
     dev = plan.positions.device
@@ -141,6 +148,41 @@ def prune_plan(cfg: LocalPlannerConfig, plan: GlobalPlan, robot_pos):
     return pp, ok
 
 
+def shortest_angle_to_pose_heading(robot_quat, target_quat):
+    """`getShortestAngleFromPose2RobotHeading` (`local_planner.cpp:197-215`):
+    yaw of (robot⁻¹ ∘ target), wrapped."""
+    q_rel = quat_multiply(quat_conjugate(robot_quat), target_quat)
+    return normalize_angle(yaw_from_quat(q_rel))
+
+
+def initial_heading_deviation(cfg: LocalPlannerConfig, plan: GlobalPlan,
+                              robot_pos, robot_quat):
+    """`isInitialHeadingAligned` (`local_planner.cpp:217-271`): heading of
+    the vector from the first to the last pose of a
+    heading_tracking_distance prune window, against the robot's.
+
+    Returns (yaw_deviation, aligned, ok), each (B,)."""
+    pp, ok = prune_plan(cfg, plan, robot_pos,
+                        forward_distance=cfg.heading_tracking_distance,
+                        backward_distance=0.0)
+    ok = ok & (pp.count >= 3)
+    last_i = torch.clamp(pp.count - 1, 0, pp.positions.shape[1] - 1)
+    v = _take_rows(pp.positions, last_i) - pp.positions[:, 0]
+    yaw = shortest_angle_to_pose_heading(robot_quat, slope_aware_quat(v))
+    aligned = torch.abs(yaw) < cfg.heading_align_angle
+    return yaw, aligned & ok, ok
+
+
+def goal_heading_deviation(cfg: LocalPlannerConfig, plan: GlobalPlan,
+                           robot_quat):
+    """`isGoalHeadingAligned` (`local_planner.cpp:273-304`). Returns
+    (yaw_deviation, aligned), each (B,)."""
+    last_i = torch.clamp(plan.count - 1, 0, plan.positions.shape[1] - 1)
+    yaw = shortest_angle_to_pose_heading(robot_quat,
+                                         _take_rows(plan.quats, last_i))
+    return yaw, (plan.count > 0) & (torch.abs(yaw) < cfg.yaw_goal_tolerance)
+
+
 def goal_reached(cfg: LocalPlannerConfig, plan: GlobalPlan, robot_pos):
     """`isGoalReached` (`local_planner.cpp:306-320`): 3D distance to the
     final plan pose under xy_goal_tolerance. Returns (B,) bool."""
@@ -152,7 +194,7 @@ def goal_reached(cfg: LocalPlannerConfig, plan: GlobalPlan, robot_pos):
 class VelocityCommand(NamedTuple):
     vx: torch.Tensor           # (B,)
     wz: torch.Tensor
-    vy: torch.Tensor           # zero: the omni generator is not ported
+    vy: torch.Tensor           # nonzero only for the omni generator
     state: torch.Tensor        # PlannerState code, int32
     best_index: torch.Tensor
     best_cost: torch.Tensor
@@ -162,8 +204,9 @@ class VelocityCommand(NamedTuple):
     rejected: torch.Tensor     # (B, S)
 
 
-_NOT_PORTED = ("omni_drive_simple", "differential_drive_rotate_inplace",
-               "differential_drive_rotate_shortest_angle")
+GENERATORS = ("differential_drive_simple", "omni_drive_simple",
+              "differential_drive_rotate_inplace",
+              "differential_drive_rotate_shortest_angle")
 
 
 def compute_velocity_command(cfg: LocalPlannerConfig, plan: GlobalPlan,
@@ -171,8 +214,8 @@ def compute_velocity_command(cfg: LocalPlannerConfig, plan: GlobalPlan,
                              obstacles, obs_valid,
                              allowed_max_speed=None,
                              heading_deviation=None,
-                             generator: str = "differential_drive_simple"
-                             ) -> VelocityCommand:
+                             generator: str = "differential_drive_simple",
+                             vy_now=None) -> VelocityCommand:
     """One control tick of a fleet (`computeVelocityCommand`,
     `local_planner.cpp:482-621`), minus the host-side gates.
 
@@ -181,45 +224,72 @@ def compute_velocity_command(cfg: LocalPlannerConfig, plan: GlobalPlan,
       robot_pos, robot_quat: (B, 3), (B, 4); v_now, w_now: (B,).
       obstacles, obs_valid: (B, M, 3) padded observations and (B, M) mask.
       allowed_max_speed: (B,) speed-zone cap (≤0 unlimited), default -1.
-      heading_deviation: (B,), default 0.
-      generator: only 'differential_drive_simple' is ported.
+      heading_deviation: (B,), default 0 (the shortest-angle critic's).
+      generator: one of :data:`GENERATORS` (a static switch).
+      vy_now: (B,) lateral velocity, omni generator only; default 0.
     """
-    if generator in _NOT_PORTED:
-        raise NotImplementedError(f"generator {generator} is not ported yet")
-    if generator != "differential_drive_simple":
+    if generator not in GENERATORS:
         raise ValueError(f"unknown generator {generator}")
-    b = robot_pos.shape[0]
+    b, dev = robot_pos.shape[0], robot_pos.device
     if allowed_max_speed is None:
-        allowed_max_speed = torch.full((b,), -1.0, device=robot_pos.device)
+        allowed_max_speed = torch.full((b,), -1.0, device=dev)
     if heading_deviation is None:
-        heading_deviation = torch.zeros((b,), device=robot_pos.device)
+        heading_deviation = torch.zeros((b,), device=dev)
 
     pp, prune_ok = prune_plan(cfg, plan, robot_pos)
 
-    gen = cfg.generator
-    samples, valid = dd_simple_samples(gen, v_now, w_now, allowed_max_speed)
-    r = rollout(samples, valid, robot_pos, robot_quat,
-                sim_time=gen.sim_time, sim_granularity=gen.sim_granularity,
+    sim_t = None
+    if generator == "differential_drive_simple":
+        gen = cfg.generator
+        samples, valid = dd_simple_samples(gen, v_now, w_now,
+                                           allowed_max_speed)
+        gates = (gen.sim_time, gen.limits.min_vel_x, gen.limits.min_vel_theta,
+                 gen.limits.max_vel_x)
+        critics = cfg.critics
+    elif generator == "omni_drive_simple":
+        gen = cfg.omni_generator
+        vy = torch.zeros((b,), device=dev) if vy_now is None else vy_now
+        samples, valid = omni_simple_samples(gen, v_now, vy, w_now)
+        # the speed-zone cap rejects by translational magnitude
+        # (`omni_simple_...cpp:513-517`)
+        vmag = torch.hypot(samples[..., 0], samples[..., 1])
+        cap = allowed_max_speed[:, None]
+        valid = valid & ((cap <= 0.0) | (vmag - 1e-4 <= cap))
+        gates = (gen.sim_time, gen.limits.min_vel_trans,
+                 gen.limits.min_vel_theta, gen.limits.max_vel_trans)
+        critics = cfg.critics
+    else:
+        gen = cfg.rotate_generator
+        samples, valid = rotate_inplace_samples(gen, cfg.generator.limits, b,
+                                                dev)
+        sim_t = 6.28 / torch.clamp(torch.abs(samples[..., 1]), min=1e-6)
+        gates = (0.0, -1.0, -1.0, -1.0)
+        critics = cfg.rotate_critics
+    r = rollout(samples, valid, robot_pos, robot_quat, sim_time=gates[0],
+                sim_granularity=gen.sim_granularity,
                 angular_sim_granularity=gen.angular_sim_granularity,
-                min_vel_x=gen.limits.min_vel_x,
-                min_vel_theta=gen.limits.min_vel_theta,
-                max_vel_x=gen.limits.max_vel_x,
-                max_steps=gen.max_num_steps)
+                min_vel_x=gates[1], min_vel_theta=gates[2],
+                max_vel_x=gates[3], max_steps=gen.max_num_steps,
+                sim_time_per_sample=sim_t)
 
     costs, rejected = score_rollouts(
-        cfg.critics, gen.cuboid, r, pp, obstacles, obs_valid,
-        heading_deviation, collision_near_k=cfg.collision_near_k)
+        critics, gen.cuboid, r, pp, obstacles, obs_valid, heading_deviation,
+        collision_near_k=cfg.collision_near_k,
+        obstacle_chunk=cfg.collision_obstacle_chunk)
     idx, cost, found = best_trajectory(costs, rejected)
 
     found_ok = found & prune_ok
-    best = r.samples.gather(1, idx[:, None, None].expand(-1, 1, 2))[:, 0]
+    width = r.samples.shape[-1]
+    best = r.samples.gather(1, idx[:, None, None].expand(-1, 1, width))[:, 0]
     vx = torch.where(found_ok, best[:, 0], 0.0)
-    wz = torch.where(found_ok, best[:, 1], 0.0)
+    wz = torch.where(found_ok, best[:, -1], 0.0)
+    vy = (torch.where(found_ok, best[:, 1], 0.0) if width == 3
+          else torch.zeros_like(vx))
     state = torch.where(
         ~prune_ok, int(PlannerState.PRUNE_PLAN_FAIL),
         torch.where(found, int(PlannerState.TRAJECTORY_FOUND),
                     int(PlannerState.ALL_TRAJECTORIES_FAIL))).int()
 
-    return VelocityCommand(vx=vx, wz=wz, vy=torch.zeros_like(vx), state=state,
+    return VelocityCommand(vx=vx, wz=wz, vy=vy, state=state,
                            best_index=idx, best_cost=cost, prune=pp,
                            rollouts=r, costs=costs, rejected=rejected)

@@ -1,8 +1,10 @@
 """Batched trajectory rollout for a fleet: the reference's per-sample Euler
 loop (`dd_simple_trajectory_generator_theory.cpp:351-464`) in closed form.
 
-Counterpart of ``dddmr_navigation_tpu/planning/local/rollout.py`` for the
-differential-drive generator. Every tensor carries a leading robot axis B.
+Counterpart of ``dddmr_navigation_tpu/planning/local/rollout.py``: the
+differential-drive and rotate-in-place layout [vx, ω], and the omni layout
+[vx, vy, ω] (`omni_simple_trajectory_generator_theory.cpp:494-510`). Every
+tensor carries a leading robot axis B.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from dddmr_navigation_tpu_torch.geometry import (
 
 class Rollouts(NamedTuple):
     """Batched rollout results. S = samples, N = max steps."""
-    samples: torch.Tensor      # (B, S, 2) [vx, ω]
+    samples: torch.Tensor      # (B, S, 2) [vx, ω] or (B, S, 3) [vx, vy, ω]
     valid: torch.Tensor        # (B, S) trajectory validity
     step_valid: torch.Tensor   # (B, S, N) per-step validity
     positions: torch.Tensor    # (B, S, N, 3) global positions
@@ -31,22 +33,26 @@ def rollout(samples, sample_valid, robot_pos, robot_quat, *,
             sim_time: float, sim_granularity: float,
             angular_sim_granularity: float, min_vel_x: float,
             min_vel_theta: float, max_vel_x: float,
-            max_steps: int) -> Rollouts:
+            max_steps: int, sim_time_per_sample=None) -> Rollouts:
     """Roll out every robot's velocity samples.
 
     Args:
-      samples: (B, S, 2) [vx, ω].
+      samples: (B, S, 2) [vx, ω], or (B, S, 3) [vx, vy, ω] (omni: the
+        validity gates act on hypot(vx, vy)).
       sample_valid: (B, S) bool.
       robot_pos, robot_quat: (B, 3), (B, 4) robot poses in the global frame.
+      sim_time_per_sample: optional (B, S) horizon in place of
+        ``sim_time`` (the rotate generator's 6.28/|ω|,
+        `dd_rotate_inplace_theory.cpp:330`).
     """
-    if samples.shape[-1] != 2:
-        raise NotImplementedError("only the differential-drive [vx, ω] "
-                                  "layout is ported")
+    omni = samples.shape[-1] == 3
     vx = samples[..., 0]
-    w = samples[..., 1]
-    vmag = torch.abs(vx)
+    vy = samples[..., 1] if omni else None
+    w = samples[..., -1]
+    vmag = torch.hypot(vx, vy) if omni else torch.abs(vx)
     eps = 1e-4
-    T = torch.full_like(vx, sim_time)
+    T = (torch.full_like(vx, sim_time) if sim_time_per_sample is None
+         else sim_time_per_sample)
 
     # validity gates (generateTrajectory early returns)
     too_slow = torch.ones_like(vx, dtype=torch.bool)
@@ -80,6 +86,10 @@ def rollout(samples, sample_valid, robot_pos, robot_quat, *,
     vdt = (vx * dt)[..., None]
     xs = vdt * cos_c
     ys = vdt * sin_c
+    if omni:            # vy rotated +90° (`omni_simple_...cpp:499-505`)
+        vydt = (vy * dt)[..., None]
+        xs = xs - vydt * sin_c
+        ys = ys + vydt * cos_c
     ths = (j + 1.0) * wdt                                    # θ after step k
 
     local = torch.stack([xs, ys, torch.zeros_like(xs)], dim=-1)  # (B,S,N,3)

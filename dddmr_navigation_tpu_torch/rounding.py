@@ -13,7 +13,10 @@ fixpoint), and XLA on the CPU does not round as eager PyTorch does:
 * ``jnp.exp`` is the Cephes polynomial with fused multiply-adds, flushing
   subnormal results to zero (:func:`exp_fma`);
 * ``jnp.sqrt`` is correctly rounded, where PyTorch's vectorised f32 sqrt
-  on the CPU may miss by an ulp (:func:`sqrt_rn`).
+  on the CPU may miss by an ulp (:func:`sqrt_rn`);
+* ``jnp.cumsum`` is a blocked scan: sequential f32 sums within blocks of
+  16, plus the scan of the block totals (:func:`cumsum_xla`), where
+  ``torch.cumsum`` accumulates otherwise on each device.
 
 A fused multiply-add runs in f64, where the product of two f32 values is
 exact, and rounds once to f32; the GPU and the CPU give the same bits.
@@ -63,6 +66,30 @@ def fma_norm(v):
     """:func:`sqrt_rn` of :func:`fma_dot`(v, v): ``jnp.linalg.norm`` over
     the last axis."""
     return sqrt_rn(fma_dot(v, v))
+
+
+_SCAN_BLOCK = 16
+
+
+def cumsum_xla(x):
+    """Inclusive f32 cumsum over the last axis in XLA's order on the CPU:
+    the axis is zero-padded to blocks of 16 and summed left to right within
+    each block; each block then adds the (recursively scanned) sum of the
+    blocks before it. Resampling searches these sums, so an ulp moves a
+    particle's source index at a boundary."""
+    n = x.shape[-1]
+    nb = -(-n // _SCAN_BLOCK)
+    xp = torch.nn.functional.pad(x, (0, nb * _SCAN_BLOCK - n))
+    xp = xp.reshape(*x.shape[:-1], nb, _SCAN_BLOCK)
+    cols = [xp[..., 0]]
+    for j in range(1, _SCAN_BLOCK):
+        cols.append(cols[-1] + xp[..., j])
+    c = torch.stack(cols, dim=-1)                       # (..., nb, 16)
+    if nb > 1:
+        before = cumsum_xla(c[..., -1])[..., :-1]
+        c = torch.cat([c[..., :1, :], c[..., 1:, :] + before[..., None]],
+                      dim=-2)
+    return c.reshape(*x.shape[:-1], nb * _SCAN_BLOCK)[..., :n]
 
 
 # Cephes expf: log2(e), ln 2 in two parts, the polynomial of exp(r).

@@ -333,15 +333,6 @@ def test_unported_options_raise(small):
         tf.build_fused_map(cfg, flat_ground_map(2, 2, 0.5),
                            no_entry_zones=np.zeros((1, 3)), device="cpu")
     from dddmr_navigation_tpu_torch.planning import global_
-    from dddmr_navigation_tpu_torch.planning.global_ import (
-        planner, wavefront)
-    for fn in (tf.fleet_interpolate_path_device, planner.fleet_plan_finish,
-               wavefront.fleet_wavefront_distances_turning,
-               wavefront.fleet_wavefront_distances,
-               wavefront.fleet_extract_path_turning,
-               wavefront.fleet_extract_path):
-        with pytest.raises(NotImplementedError, match=fn.__name__):
-            fn()
     for name in ("dwa", "runtime", "DWAGlobalPlanManager",
                  "GlobalPlannerRuntime"):
         with pytest.raises(NotImplementedError, match=name):

@@ -272,17 +272,23 @@ def test_scores_and_command_match_jax(small):
 
 
 def test_unported_options_raise():
+    """Every generator and critic of the local planner is ported now: the
+    omni generator and the collision_min_max critic run, and only an
+    unknown generator raises."""
     args = make_global_plan(np.zeros((1, 4, 3)), max_len=8,
                             device="cpu"), *(
         torch.zeros(s) for s in ((1, 3), (1, 4), (1,), (1,), (1, 8, 3)))
-    with pytest.raises(NotImplementedError):
-        compute_velocity_command(SMALL, *args, torch.ones(1, 8, dtype=bool),
-                                 generator="omni_drive_simple")
+    mask = torch.ones(1, 8, dtype=bool)
+    with pytest.raises(ValueError, match="unknown generator"):
+        compute_velocity_command(SMALL, *args, mask, generator="ackermann")
+    cmd = compute_velocity_command(SMALL, *args, mask,
+                                   generator="omni_drive_simple")
+    assert cmd.rollouts.samples.shape[-1] == 3
     from dddmr_navigation_tpu.config import CriticConfig, CriticsConfig
     cfg = config_from(LocalPlannerConfig(critics=CriticsConfig(
         collision_min_max=CriticConfig(weight=1.0))))
-    with pytest.raises(NotImplementedError):
-        compute_velocity_command(cfg, *args, torch.ones(1, 8, dtype=bool))
+    cmd = compute_velocity_command(cfg, *args, mask)
+    assert cmd.state.shape == (1,)
 
 
 # ---------------------------------------------------------------------------
@@ -488,6 +494,11 @@ def test_port_never_imports_jax():
             "import dddmr_navigation_tpu_torch.planning.global_.graph\n"
             "import dddmr_navigation_tpu_torch.planning.global_.planner\n"
             "import dddmr_navigation_tpu_torch.ops.compaction\n"
+            "import dddmr_navigation_tpu_torch.control.fsm\n"
+            "import dddmr_navigation_tpu_torch.control.recovery\n"
+            "import dddmr_navigation_tpu_torch.state_estimation.pf\n"
+            "import dddmr_navigation_tpu_torch.state_estimation.likelihood\n"
+            "import dddmr_navigation_tpu_torch.state_estimation.mcl\n"
             "fn, args = dddmr_navigation_tpu_torch.entry.entry('cpu')\n"
             "fn(*args)\n"
             "from dddmr_navigation_tpu_torch import entry as e\n"
@@ -500,6 +511,15 @@ def test_port_never_imports_jax():
             "        torch.as_tensor(m)[None], r, torch.tensor([[0., 0, 0, 1]]),\n"
             "        torch.as_tensor(c3.offset), torch.as_tensor(c3.goal)[None],\n"
             "        torch.zeros(1), torch.zeros(1))\n"
+            "from dddmr_navigation_tpu_torch.state_estimation import mcl, pf\n"
+            "c4 = e.config4_inputs(e.config4_config(3, 3, 8, 32, 16, 256, 32,\n"
+            "                                       16, 128, 512, 64, 8),\n"
+            "                      e.config4_world(2, 256), 'cpu')\n"
+            "gen = torch.Generator().manual_seed(0)\n"
+            "st = e.config4_state(c4, mcl.init_draws(gen, c4.mcl, 2, 'cpu'))\n"
+            "out, _ = e.run_fleet_full_chain(\n"
+            "    c4, st, lambda t: pf.draw_mcl(gen, 2, 8, 'cpu'), 2)\n"
+            "assert out['decision'].shape == (2, 2)\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
             "             or m == 'dddmr_navigation_tpu'\n"
@@ -544,3 +564,263 @@ def test_entry_points_default_to_cuda():
         else:
             with pytest.raises((RuntimeError, AssertionError)):
                 call()
+
+
+# ---------------------------------------------------------------------------
+# the omni and rotate generators, heading predicates, collision_min_max
+# (the JAX package's test_rotate_samples, test_omni_*, test_goal_reached_
+# and_heading and test_collision_min_max_* cases, held against JAX)
+# ---------------------------------------------------------------------------
+
+OMNI_CFG = LocalPlannerConfig()
+
+
+def test_rotate_samples_match_jax():
+    from dddmr_navigation_tpu.planning.local.sampler import (
+        rotate_inplace_samples as j_rot)
+    from dddmr_navigation_tpu_torch.planning.local.sampler import (
+        rotate_inplace_samples)
+    cfg = config_from(OMNI_CFG)
+    want, wvalid = j_rot(OMNI_CFG.rotate_generator, OMNI_CFG.generator.limits)
+    got, valid = rotate_inplace_samples(cfg.rotate_generator,
+                                        cfg.generator.limits, 3, "cpu")
+    assert got.shape == (3, 2, 2)
+    for b in range(3):
+        np.testing.assert_array_equal(got[b].numpy(), np.asarray(want))
+        np.testing.assert_array_equal(valid[b].numpy(), np.asarray(wvalid))
+    np.testing.assert_allclose(got[0][valid[0]].numpy(),
+                               [[0.0, 0.5], [0.0, -0.5]], atol=1e-6)
+
+
+OMNI_STATES = [(0.0, 0.0, 0.0), (0.43, -0.21, 0.13), (1.0, 0.5, -0.31),
+               (-0.3, 0.0, 0.5)]
+
+
+def test_omni_samples_match_jax():
+    from dddmr_navigation_tpu.planning.local.sampler import (
+        omni_simple_samples as j_omni)
+    from dddmr_navigation_tpu_torch.planning.local.sampler import (
+        omni_simple_samples)
+    v, vy, w = (np.asarray(c, np.float32) for c in zip(*OMNI_STATES))
+    want, wmask = jax.jit(jax.vmap(lambda *a: j_omni(
+        OMNI_CFG.omni_generator, *a)))(v, vy, w)
+    got, mask = omni_simple_samples(config_from(OMNI_CFG).omni_generator,
+                                    *(tensor(x, "cpu") for x in (v, vy, w)))
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(wmask))
+    # the omni windows' bounds may round an ulp apart from XLA's
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+    assert mask.sum() > 100
+
+
+def _gen_rollouts(gen_name, b=3):
+    """JAX's and the port's rollouts of the omni or rotate generator for
+    ``b`` robots at seeded poses."""
+    from dddmr_navigation_tpu.planning.local import sampler as js
+    from dddmr_navigation_tpu_torch.planning.local import sampler as ts
+    rng = np.random.default_rng(11)
+    pos = rng.uniform(-1, 1, (b, 3)).astype(np.float32)
+    pos[:, 2] = rng.uniform(0, 0.2, b)
+    quat = np.asarray(jgeo.quat_from_rpy(
+        *(rng.uniform(-a, a, b).astype(np.float32) for a in (0.05, 0.1, 3))))
+    v, vy, w = (rng.uniform(-0.4, 0.6, b).astype(np.float32)
+                for _ in range(3))
+    cfg, tcfg = OMNI_CFG, config_from(OMNI_CFG)
+    if gen_name == "omni":
+        gen, tgen = cfg.omni_generator, tcfg.omni_generator
+        lim = gen.limits
+        kw = dict(sim_time=gen.sim_time, min_vel_x=lim.min_vel_trans,
+                  min_vel_theta=lim.min_vel_theta,
+                  max_vel_x=lim.max_vel_trans)
+
+        def j_samples(v, vy, w):
+            return js.omni_simple_samples(gen, v, vy, w)
+        t_samples = ts.omni_simple_samples(tgen, *(tensor(x, "cpu")
+                                                   for x in (v, vy, w)))
+    else:
+        gen, tgen = cfg.rotate_generator, tcfg.rotate_generator
+        kw = dict(sim_time=0.0, min_vel_x=-1.0, min_vel_theta=-1.0,
+                  max_vel_x=-1.0)
+
+        def j_samples(v, vy, w):
+            return js.rotate_inplace_samples(gen, cfg.generator.limits)
+        t_samples = ts.rotate_inplace_samples(tgen, tcfg.generator.limits, b,
+                                              "cpu")
+    kw.update(sim_granularity=gen.sim_granularity,
+              angular_sim_granularity=gen.angular_sim_granularity,
+              max_steps=gen.max_num_steps)
+
+    def one(p, q, v, vy, w):
+        s, ok = j_samples(v, vy, w)
+        sim_t = (None if gen_name == "omni" else
+                 6.28 / jnp.maximum(jnp.abs(s[:, -1]), 1e-6))
+        return j_rollout(s, ok, p, q, sim_time_per_sample=sim_t, **kw)
+    want = jax.jit(jax.vmap(one))(pos, quat, v, vy, w)
+    s, ok = t_samples
+    sim_t = (None if gen_name == "omni" else
+             6.28 / torch.clamp(torch.abs(s[..., -1]), min=1e-6))
+    got = rollout(s, ok, tensor(pos, "cpu"), tensor(quat, "cpu"),
+                  sim_time_per_sample=sim_t, **kw)
+    return jax.tree_util.tree_map(np.asarray, want), to_numpy(got)
+
+
+@pytest.mark.parametrize("gen_name", ["omni", "rotate"])
+def test_generator_rollouts_match_jax(gen_name):
+    want, got = _gen_rollouts(gen_name)
+    np.testing.assert_array_equal(got.num_steps, want.num_steps)
+    np.testing.assert_array_equal(got.valid, want.valid)
+    np.testing.assert_array_equal(got.step_valid, want.step_valid)
+    np.testing.assert_allclose(got.dt, want.dt, rtol=1e-6)
+    np.testing.assert_allclose(got.theta, want.theta, atol=1e-6)
+    np.testing.assert_allclose(got.positions, want.positions, atol=1e-5)
+    if gen_name == "rotate":     # a full revolution at 0.025 rad a step
+        assert (got.num_steps == 252).all()
+
+
+def test_heading_deviations_match_jax():
+    from dddmr_navigation_tpu.planning.local.planner import (
+        initial_heading_deviation as j_init, goal_heading_deviation as j_goal,
+        shortest_angle_to_pose_heading as j_short)
+    from dddmr_navigation_tpu_torch.planning.local.planner import (
+        initial_heading_deviation, goal_heading_deviation,
+        shortest_angle_to_pose_heading)
+    plans, pos, *_ = small_inputs()
+    plans[2, :, 1] = 0.0               # a straight line along x
+    b = len(plans)
+    yaws = np.asarray([0.0, 2.0, -0.4, 3.0], np.float32)
+    quat = np.asarray(jgeo.quat_from_yaw(yaws))
+    pos = pos.copy()
+    pos[2] = [0.0, 0.0, 0.0]
+    jplans = stack_plans([j_make_plan(p, max_len=64) for p in plans])
+    cfg = SMALL
+
+    def one(plan, p, q):
+        return (*j_init(cfg, plan, p, q), *j_goal(cfg, plan, q),
+                j_short(q, plan.quats[5]))
+    want = [np.asarray(x) for x in jax.jit(jax.vmap(one))(jplans, pos, quat)]
+    tplan = to_port(jax.tree_util.tree_map(np.asarray, jplans), GlobalPlan,
+                    "cpu")
+    tpos, tquat = tensor(pos, "cpu"), tensor(quat, "cpu")
+    got = [x.numpy() for x in (
+        *initial_heading_deviation(cfg, tplan, tpos, tquat),
+        *goal_heading_deviation(cfg, tplan, tquat),
+        shortest_angle_to_pose_heading(tquat, tplan.quats[:, 5]))]
+    for i in (1, 2, 4):                                  # the bools
+        np.testing.assert_array_equal(got[i], want[i])
+    for i in (0, 3, 5):                                  # the yaws
+        np.testing.assert_allclose(got[i], want[i], atol=1e-6)
+    # the JAX package's own cases: aligned along a straight plan, and 2 rad
+    # off it
+    assert got[1][2] and got[2][2]
+    assert not got[1][1] and got[2][1]
+
+
+def _min_max_case():
+    """A 3-robot batch for collision_min_max: a wall ahead, distant
+    points, and four points (under the critic's 5-point gate)."""
+    gen = LocalPlannerConfig().generator
+    wall = [[0.5, y, 0.3] for y in np.arange(-0.5, 0.51, 0.1)]
+    far = [[50.0 + i, 50.0, 0.3] for i in range(10)]
+    obs = np.zeros((3, 16, 3), np.float32)
+    mask = np.zeros((3, 16), bool)
+    for b, pts in enumerate((wall, far, [[0.5, 0.0, 0.3]] * 4)):
+        obs[b, :len(pts)] = pts
+        mask[b, :len(pts)] = True
+    return gen, obs, mask
+
+
+def test_collision_min_max_matches_jax():
+    gen, obs, mask = _min_max_case()
+    v = np.full(3, 0.3, np.float32)
+    zeros = np.zeros(3, np.float32)
+    ident = np.tile(np.float32([[0, 0, 0, 1]]), (3, 1))
+    pos = np.zeros((3, 3), np.float32)
+    kw = dict(sim_time=gen.sim_time, sim_granularity=gen.sim_granularity,
+              angular_sim_granularity=gen.angular_sim_granularity,
+              min_vel_x=gen.limits.min_vel_x,
+              min_vel_theta=gen.limits.min_vel_theta,
+              max_vel_x=gen.limits.max_vel_x, max_steps=gen.max_num_steps)
+
+    def one(p, q, v, w, o, m):
+        s, ok = j_dd_samples(gen, v, w, jnp.float32(-1.0))
+        r = j_rollout(s, ok, p, q, **kw)
+        return jcrit.collision_min_max_scores(r, gen.cuboid, o, m), r.samples
+    want, samples = jax.jit(jax.vmap(one))(pos, ident, v, zeros, obs, mask)
+    tgen = config_from(gen)
+    s, ok = dd_simple_samples(tgen, tensor(v, "cpu"), tensor(zeros, "cpu"),
+                              torch.full((3,), -1.0))
+    r = rollout(s, ok, tensor(pos, "cpu"), tensor(ident, "cpu"), **kw)
+    got = tcrit.collision_min_max_scores(r, tgen.cuboid, tensor(obs, "cpu"),
+                                         tensor(mask, "cpu")).numpy()
+    np.testing.assert_array_equal(got, np.asarray(want))
+    samples = np.asarray(samples)
+    fwd = (r.valid.numpy()[0] & (samples[0, :, 0] > 0.2)
+           & (np.abs(samples[0, :, -1]) < 0.1))
+    assert fwd.any() and (got[0][fwd] == -1.0).all()   # the wall rejects
+    assert (got[1] == 0.0).all() and (got[2] == 0.0).all()
+
+
+def _generator_ticks(generator, critics=None):
+    """One tick of the small fleet plus a wall-ahead robot through
+    ``generator`` (and the given critic stack), JAX's and the port's."""
+    from dddmr_navigation_tpu.config import (
+        CriticsConfig as JCritics, CriticConfig as JCritic)
+    plans, pos, yaw, v, w, obs, obs_valid, cap, hd = small_inputs(b=4, m=64)
+    # robot 0 faces a wall dead ahead with free space to its sides
+    wall = np.asarray([[0.8, y, 0.25] for y in np.arange(-1.0, 1.01, 0.05)],
+                      np.float32)
+    obs[0] = pos[0] + np.pad(wall, ((0, 64 - len(wall)), (0, 0)),
+                             mode="edge")
+    obs_valid[0] = True
+    yaw[0] = 0.0
+    # off the vy lattice's zero (a multiple of 0.1 puts a sample at zero,
+    # where XLA's rounding of the window may differ by context)
+    vy = np.asarray([0.03, 0.23, -0.13, 0.05], np.float32)
+    cfg = SMALL
+    if critics == "min_max":
+        cfg = LocalPlannerConfig(**{
+            **{f: getattr(SMALL, f) for f in SMALL.__dataclass_fields__},
+            "critics": JCritics(collision=None, collision_min_max=JCritic(
+                plugin="mpc_critics::CollisionMinMaxModel", weight=1.0))})
+        cfg = config_from(cfg)
+    quat = np.asarray(jgeo.quat_from_yaw(yaw))
+    jplans = stack_plans([j_make_plan(p, max_len=cfg.max_plan_len)
+                          for p in plans])
+
+    def one(plan, p, q, v, w, o, m, c, h, vy):
+        return j_tick(cfg, plan, p, q, v, w, o, m, c, h, generator=generator,
+                      vy_now=vy)
+    want = jax.tree_util.tree_map(np.asarray, jax.jit(jax.vmap(one))(
+        jplans, pos, quat, v, w, obs, obs_valid, cap, hd, vy))
+    tplan = to_port(jax.tree_util.tree_map(np.asarray, jplans), GlobalPlan,
+                    "cpu")
+    got = to_numpy(compute_velocity_command(
+        cfg, tplan, *(tensor(x, "cpu") for x in (
+            pos, quat, v, w, obs, obs_valid, cap, hd)),
+        generator=generator, vy_now=tensor(vy, "cpu")))
+    return want, got
+
+
+@pytest.mark.parametrize("generator,critics", [
+    ("omni_drive_simple", None),
+    ("differential_drive_rotate_inplace", None),
+    ("differential_drive_rotate_shortest_angle", None),
+    ("differential_drive_simple", "min_max")])
+def test_generator_ticks_match_jax(generator, critics):
+    want, got = _generator_ticks(generator, critics)
+    np.testing.assert_array_equal(got.rejected, want.rejected)
+    np.testing.assert_allclose(got.costs, want.costs, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(got.state, want.state)
+    assert_best_index(got.best_index, want.best_index, want.costs)
+    for f in ("vx", "wz", "vy"):
+        np.testing.assert_allclose(getattr(got, f), getattr(want, f),
+                                   atol=1e-5, err_msg=f)
+    if generator == "omni_drive_simple":
+        # the JAX package's lateral-dodge case: the wall-facing robot keeps
+        # a collision-free command, and vy is a real output
+        assert got.state[0] in (PlannerState.TRAJECTORY_FOUND,
+                                PlannerState.ALL_TRAJECTORIES_FAIL)
+        if got.state[0] == PlannerState.TRAJECTORY_FOUND:
+            assert got.best_cost[0] >= 0.0
+        assert (got.vy != 0).any()
+    if critics == "min_max":
+        assert got.rejected[0].any()
