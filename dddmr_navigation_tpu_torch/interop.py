@@ -10,7 +10,10 @@ class's annotations. :func:`to_numpy` turns port outputs back into numpy.
 config of the same field names (the JAX package's, say), by name alone.
 :func:`fleet_full_state_from` builds the full fleet tick's state (its FSM,
 recovery and MCL states included; the JAX filter's random key is dropped,
-since the port takes its draws as arguments).
+since the port takes its draws as arguments). :data:`DRAW_KEYS`,
+:func:`mcl_fields`, :func:`port_mcl_state` and :func:`port_draws` read and
+write the MCL states and draws of a golden record (the JAX package's
+filter and its draws, or the port's, as numpy by name).
 """
 from __future__ import annotations
 
@@ -19,6 +22,9 @@ import typing
 
 import numpy as np
 import torch
+
+# One MCL update's unit draws in a golden record, in ``pf.MCLDraws``'s order.
+DRAW_KEYS = ("u", "res_pos", "res_rpy", "exp_pos", "exp_rpy", "odom")
 
 # Kept as they are; other integers become int64, floats f32.
 _KEPT = {np.dtype(np.bool_): torch.bool, np.dtype(np.uint8): torch.uint8,
@@ -128,3 +134,41 @@ def fleet_full_state_from(src, device):
         else:
             out[name] = tensor(value, device)
     return FleetFullState(**out)
+
+
+def mcl_fields(mcl) -> dict:
+    """An MCLState's arrays (the JAX package's or the port's, its random
+    key left out) by ``mcl_``-prefixed field path: ``mcl_particles_pos``,
+    ``mcl_state_prev_pos``, ``mcl_f_pos_x``, ..."""
+    out = {}
+    for name in ("particles", "f_pos", "f_ang"):
+        sub = getattr(mcl, name)
+        for f in sub._fields:
+            out[f"mcl_{name}_{f}"] = np.asarray(to_numpy(getattr(sub, f)))
+    for f in ("state_prev_pos", "state_prev_quat"):
+        out[f"mcl_{f}"] = np.asarray(to_numpy(getattr(mcl, f)))
+    return out
+
+
+def port_mcl_state(record, t: int, device):
+    """The port's MCLState of tick ``t`` of a record of :func:`mcl_fields`
+    stacked over ticks (a golden file)."""
+    from dddmr_navigation_tpu_torch.state_estimation.mcl import Lpf3, MCLState
+    from dddmr_navigation_tpu_torch.state_estimation.pf import PFState
+
+    def a(k):
+        return torch.as_tensor(record[f"mcl_{k}"][t], device=device)
+    return MCLState(
+        particles=PFState(*(a(f"particles_{f}") for f in PFState._fields)),
+        state_prev_pos=a("state_prev_pos"),
+        state_prev_quat=a("state_prev_quat"),
+        f_pos=Lpf3(a("f_pos_x"), a("f_pos_out")),
+        f_ang=Lpf3(a("f_ang_x"), a("f_ang_out")))
+
+
+def port_draws(draws, device):
+    """The port's ``pf.MCLDraws`` from one update's draws by
+    :data:`DRAW_KEYS`."""
+    from dddmr_navigation_tpu_torch.state_estimation.pf import MCLDraws
+    return MCLDraws(*(torch.as_tensor(draws[k], device=device)
+                      for k in DRAW_KEYS))

@@ -35,15 +35,15 @@ from dddmr_navigation_tpu.state_estimation.likelihood import (
 from dddmr_navigation_tpu_torch import entry
 from dddmr_navigation_tpu_torch.control import fused as tfused
 from dddmr_navigation_tpu_torch.interop import (
-    config_from, fleet_full_state_from, tensor, to_numpy)
+    DRAW_KEYS, config_from, fleet_full_state_from, port_draws, port_mcl_state,
+    tensor, to_numpy)
 from dddmr_navigation_tpu_torch.parallel import fleet as tfleet
 from dddmr_navigation_tpu_torch.planning.global_ import planner as tplanner
 from dddmr_navigation_tpu_torch.planning.global_ import wavefront as twf
 from dddmr_navigation_tpu_torch.state_estimation import mcl as tmcl
 from dddmr_navigation_tpu_torch.state_estimation import pf as tpf
 
-from tools.make_config4_golden import (
-    DRAW_KEYS, jax_mcl_draws, port_draws, port_mcl_state)
+from tools.make_config4_golden import jax_mcl_draws
 
 torch.set_num_threads(2)
 
@@ -442,7 +442,7 @@ def test_config4_matches_golden_teacher_forced():
                                      torch.as_tensor(g["init_rpy_n"])))
     out, _ = entry.run_fleet_full_chain(
         c4, state,
-        lambda k: tpf.MCLDraws(*(torch.as_tensor(g[n][k]) for n in DRAW_KEYS)),
+        lambda k: port_draws({n: g[n][k] for n in DRAW_KEYS}, "cpu"),
         2, forced=lambda k: golden_forcing(g, k))
     for f in ("decision", "cmd_source", "ps_simple", "ps_rotate", "plan_ok",
               "wf_iters"):

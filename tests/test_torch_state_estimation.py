@@ -21,13 +21,15 @@ from dddmr_navigation_tpu.state_estimation import pf as jpf
 from dddmr_navigation_tpu.state_estimation import likelihood as jlk
 from dddmr_navigation_tpu.state_estimation import mcl as jmcl
 
-from dddmr_navigation_tpu_torch.interop import config_from, tensor, to_port
+from dddmr_navigation_tpu_torch.interop import (
+    DRAW_KEYS, config_from, mcl_fields, port_draws, port_mcl_state, tensor,
+    to_port)
 from dddmr_navigation_tpu_torch.rounding import cumsum_xla
 from dddmr_navigation_tpu_torch.state_estimation import pf as tpf
 from dddmr_navigation_tpu_torch.state_estimation import likelihood as tlk
 from dddmr_navigation_tpu_torch.state_estimation import mcl as tmcl
 
-from tools.make_config4_golden import jax_mcl_draws, port_draws
+from tools.make_config4_golden import jax_mcl_draws
 
 torch.set_num_threads(1)
 
@@ -411,6 +413,29 @@ def test_mcl_update_matches_jax(world, mode):
     # the estimates moved with the drifting odometry (the filter did work)
     moved = np.linalg.norm(tout.pose_pos.numpy() - center, axis=1)
     assert (moved > 0.0).all() and np.isfinite(moved).all()
+
+
+def test_golden_record_helpers_round_trip():
+    """``interop.mcl_fields`` of the JAX filter and of its port copy agree,
+    ``port_mcl_state`` rebuilds the port's state from such a record, and
+    ``port_draws`` keeps ``jax_mcl_draws``' draws in ``MCLDraws``' order."""
+    center, _, quat = particles()
+    jstate = jax.vmap(lambda i, p, q: jmcl.init_mcl(
+        jax.random.PRNGKey(i), MCL, p, q))(jnp.arange(B), center, quat[:, 0])
+    tstate = to_port(as_np(jstate), tmcl.MCLState, "cpu")
+    jrec, trec = mcl_fields(jstate), mcl_fields(tstate)
+    assert jrec.keys() == trec.keys() and len(jrec) == 15
+    for k in jrec:
+        np.testing.assert_array_equal(trec[k], jrec[k], err_msg=k)
+    back = port_mcl_state({k: v[None] for k, v in jrec.items()}, 0, "cpu")
+    for k, v in mcl_fields(back).items():
+        np.testing.assert_array_equal(v, jrec[k], err_msg=k)
+    d = jax_mcl_draws(jstate.key, N)
+    draws = port_draws(d, "cpu")
+    assert isinstance(draws, tpf.MCLDraws) and len(DRAW_KEYS) == len(draws)
+    for k, v in zip(DRAW_KEYS, draws):
+        np.testing.assert_array_equal(v.numpy(), d[k], err_msg=k)
+    assert draws.resample_u.shape == (B,) and draws.odom.shape == (B, N, 4)
 
 
 def test_relative_odom_and_motion_gate():

@@ -24,9 +24,10 @@ Saves, compressed, to
 * per tick, the true pose and twist the tick started from (``pos``,
   ``quat``, ``v``, ``w``), the MCL state it started from (``mcl_`` and
   the field's path: ``mcl_particles_pos``, ``mcl_state_prev_pos``,
-  ``mcl_f_pos_x``, ..., see :func:`mcl_fields`) and its outputs ``decision``, ``cmd_source``,
-  ``ps_simple``, ``ps_rotate``, ``plan_ok``, ``wf_iters``, ``vx``, ``wz``,
-  ``plan_pos``, ``plan_yaw`` and ``mcl_err``.
+  ``mcl_f_pos_x``, ..., see ``interop.mcl_fields``) and its outputs
+  ``decision``, ``cmd_source``, ``ps_simple``, ``ps_rotate``, ``plan_ok``,
+  ``wf_iters``, ``vx``, ``wz``, ``plan_pos``, ``plan_yaw`` and
+  ``mcl_err``.
 
 ``chip_smoke.py`` and ``tests/test_torch_fleet_full.py`` hold the port to
 it. ~3 minutes on a 2-core CPU:
@@ -41,7 +42,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 OUT = os.path.join(ROOT, "dddmr_navigation_tpu_torch", "testdata",
                    "config4_golden.npz")
-DRAW_KEYS = ("u", "res_pos", "res_rpy", "exp_pos", "exp_rpy", "odom")
+
+from dddmr_navigation_tpu_torch.interop import DRAW_KEYS, mcl_fields  # noqa: E402
 
 
 def jax_init_normals(seed: int, b: int, n: int):
@@ -66,7 +68,7 @@ def jax_mcl_draws(keys, n: int) -> dict:
     resampling's unit uniform (``uniform(ku, (), 0, pstep)`` is
     ``max(0, u·pstep)``) and normals, the expansion's normals and the
     four odometry-noise normals. Returns numpy arrays by
-    :data:`DRAW_KEYS`."""
+    ``interop.DRAW_KEYS``."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -84,45 +86,6 @@ def jax_mcl_draws(keys, n: int) -> dict:
 
     out = jax.jit(jax.vmap(one))(keys)
     return {k: np.asarray(v) for k, v in zip(DRAW_KEYS, out)}
-
-
-def mcl_fields(mcl) -> dict:
-    """An MCLState's arrays (the JAX package's or the port's, its random
-    key left out) by ``mcl_``-prefixed field path."""
-    import numpy as np
-    out = {}
-    for name in ("particles", "f_pos", "f_ang"):
-        sub = getattr(mcl, name)
-        for f in sub._fields:
-            out[f"mcl_{name}_{f}"] = np.asarray(getattr(sub, f))
-    for f in ("state_prev_pos", "state_prev_quat"):
-        out[f"mcl_{f}"] = np.asarray(getattr(mcl, f))
-    return out
-
-
-def port_mcl_state(g, t: int, device):
-    """The port's MCLState of tick ``t`` of a golden file's
-    :func:`mcl_fields` record."""
-    import torch
-    from dddmr_navigation_tpu_torch.state_estimation.mcl import Lpf3, MCLState
-    from dddmr_navigation_tpu_torch.state_estimation.pf import PFState
-
-    def a(k):
-        return torch.as_tensor(g[f"mcl_{k}"][t], device=device)
-    return MCLState(
-        particles=PFState(*(a(f"particles_{f}") for f in PFState._fields)),
-        state_prev_pos=a("state_prev_pos"),
-        state_prev_quat=a("state_prev_quat"),
-        f_pos=Lpf3(a("f_pos_x"), a("f_pos_out")),
-        f_ang=Lpf3(a("f_ang_x"), a("f_ang_out")))
-
-
-def port_draws(d: dict, device):
-    """The port's ``MCLDraws`` from one tick's :func:`jax_mcl_draws`."""
-    import torch
-    from dddmr_navigation_tpu_torch.state_estimation.pf import MCLDraws
-    return MCLDraws(*(torch.as_tensor(d[k], device=device)
-                      for k in DRAW_KEYS))
 
 
 def main():
