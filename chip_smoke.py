@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port (dddmr_navigation_tpu_torch) on one CUDA
 card, at the full width of the 64-robot headline fleet, the fused tick of
-bench config 3 and the full-fidelity fleet of bench config 4.
+bench config 3, the full-fidelity fleet of bench config 4 and the
+single-robot navigation session.
 
     python3 chip_smoke.py
 
@@ -94,13 +95,42 @@ rotate recovery; any failed check raises:
      rotate+recovery+FSM), host syncs in a warm tick, a profile and peak
      memory.
 
+Then the session phase: one robot's ``NavigationSession`` through the
+session demo's scenario (``entry.session_scenario()``: the 14×8 m floor at
+0.2 m, 2,911 ground nodes, a 2.8 m wall across the route, a 72×72×24
+window, a 32×360 range image, 24×240 simulated rays, 66 samples of 64
+steps and 2 × 256 rotate steps against all 2,048 observation points,
+1,024 relaxation iterations, the LOS gate over 4,096 long edges, DWA
+replans at 10 Hz; two depth cameras of 3 × 1,024 points, a no-entry zone
+and a 0.2 m/s zone); any failed check raises:
+ 18. builds the session;
+ 19. replays the JAX session's recorded ticks
+     (``dddmr_navigation_tpu_torch/testdata/session_golden.npz``) from
+     their recorded inputs: decisions, planner states, plan pose counts,
+     done, succeeded and DWA pivots equal JAX's, commands and the composed
+     field within 1e-5;
+ 20. runs the scenario closed loop on the kernel path and on the plain
+     path: equal bit for bit, SUCCESS within 0.6 m of the goal, more than
+     0.2 m from the wall, never inside the no-entry zone; times the ticks
+     (median, p95, p99) and their stages (perception, depth,
+     composition+lethal, plan manager, local tick, FSM) by CUDA events,
+     and reads the peak memory of the session ticks;
+ 21. as step 3, on the arguments of the align-heading ticks 3 and 4 (both
+     generators run), tick 4's collision calls with a ring that every
+     rollout hits: the simple call (1, 66, 64, K 2,048), the rotate call
+     (1, 2, 256, K 2,048), the stick-path (1 × 4,224) and toward-plan
+     (1 × 66) distance calls;
+ 22. runs the session with the threaded plan manager to SUCCESS and
+     prints the plans its worker published; then host syncs by call site
+     in a replayed tick and a profile.
+
 The line before the last is one JSON object with each kernel's route,
-source, launches, error, times and bound: ``launches`` counts the three
+source, launches, error, times and bound: ``launches`` counts the four
 phases' chains (each counter set to 0 just before its chain and read just
-after), ``max_abs_err`` is the largest over every check, ``ms``,
+after; the session's is its kernel-path closed loop), ``max_abs_err`` is the largest over every check, ``ms``,
 ``plain_ms``, ``v1_ms``, ``bound_us`` (``bound_ms``), ``device_us_per_tick``
-and ``v1_device_us_per_tick`` add a headline tick's, a fused tick's and a
-fleet tick's calls, ``share_of_bound`` is bound over device time,
+and ``v1_device_us_per_tick`` add a headline tick's, a fused tick's, a
+fleet tick's and a session check tick's calls, ``share_of_bound`` is bound over device time,
 ``library_ms`` is null (no single PyTorch call computes either function),
 and ``paths`` gives each phase's own numbers, with ``full_bound_us``, the
 bound counted over every row and obstacle of the shapes, ``cull_keeps``
@@ -153,6 +183,12 @@ FLEET_SEED = 4                    # the chains' torch.Generator seed
 FLEET_INT = ("decision", "cmd_source", "ps_simple", "ps_rotate", "plan_ok",
              "wf_iters", "best_index", "recovery_active")
 FLEET_FLOAT = ("vx", "wz", "plan_pos", "plan_yaw", "mcl_err")
+
+SESSION_CHECK_TICKS = (3, 4)      # align-heading ticks: both generators run
+SESSION_RING_TICK = 4             # its collision calls get the ring
+SESSION_PROFILED_TICKS = 5
+SESSION_STAGES = ("perception", "depth", "composition+lethal",
+                  "plan manager", "local tick", "FSM")
 
 
 def fail(msg):
@@ -571,7 +607,9 @@ def main():
     paths = {"headline": headline_phase(np, torch, dev, entry, ops, kernels,
                                         card),
              "fused": fused_phase(np, torch, dev, entry, ops, kernels, card),
-             "fleet": fleet_phase(np, torch, dev, entry, ops, kernels, card)}
+             "fleet": fleet_phase(np, torch, dev, entry, ops, kernels, card),
+             "session": session_phase(np, torch, dev, entry, ops, kernels,
+                                      card)}
 
     print(card)
     out = []
@@ -596,9 +634,10 @@ def main():
             "share_of_bound": bound / device,
             "v1_device_us_per_tick": total("v1_device_us_per_tick"),
             "v1_ms": total("v1_ms"),
-            "launches_per_tick": {"headline": PER_TICK[name],
-                                  "fused": PER_TICK[name],
-                                  "fleet": FLEET_PER_TICK[name]},
+            "launches_per_tick": {
+                "headline": PER_TICK[name], "fused": PER_TICK[name],
+                "fleet": FLEET_PER_TICK[name],
+                "session": paths["session"][name]["launches_per_tick"]},
             "paths": per})
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
@@ -1294,6 +1333,231 @@ def fleet_phase(np, torch, dev, entry, ops, kernels, card):
           f"states); over the whole phase, plain chains and kernel checks "
           f"included, {phase_peak / 2**20:.1f} MiB; card {card}")
     return {name: dict(launches=launches[name], **stats[name])
+            for name in kernels}
+
+
+def session_phase(np, torch, dev, entry, ops, kernels, card):
+    """Steps 18-22: the single-robot navigation session (perception, depth
+    cameras, zone layers, DWA replans, the local planner, the move-base
+    FSM) at the session demo's full width. Returns {kernel name:
+    dict(launches, launches_per_tick, and check_kernels' numbers)}."""
+    torch.cuda.reset_peak_memory_stats()
+    g = np.load(os.path.join(ROOT, "dddmr_navigation_tpu_torch", "testdata",
+                             "session_golden.npz"))
+
+    # 18. build
+    t0 = time.perf_counter()
+    sc = entry.session_scenario()
+    cfg, lp, p = sc.cfg, sc.cfg.local_planner, sc.cfg.perception
+    sess = entry.make_session(sc, dev)
+    n_nodes, k_nbr = sess.driver.runtime.graph.nbr_idx.shape
+    print(f"session: built in {time.perf_counter() - t0:.2f} s: "
+          f"G={n_nodes} ground nodes, K={k_nbr}; window "
+          f"{p.voxel_window_cells_xy}x{p.voxel_window_cells_xy}x"
+          f"{p.voxel_window_cells_z}; range image "
+          f"{p.lidar.range_image_rows}x{p.lidar.range_image_cols}; "
+          f"{lp.generator.n_samples_padded} samples x "
+          f"{lp.generator.max_num_steps} steps, rotate 2 x "
+          f"{lp.rotate_generator.max_num_steps}; {lp.max_obstacle_points} "
+          f"observation points, near-K {lp.collision_near_k}; "
+          f"{sc.cameras} cameras x {sc.buffer_depth} frames x "
+          f"{sc.depth_points} points; {len(sc.no_entry)} no-entry and "
+          f"{len(sc.speed_zone[0])} speed-zone points", flush=True)
+
+    # 19. the golden's recorded ticks, unforced
+    replay = entry.replay_session(sess, sc, g, forced=False)
+    bad, dv, dw, dc = entry.replay_errors(g, replay)
+    print(f"golden session replay ({len(replay)} recorded ticks, unforced): "
+          f"integer mismatches {bad[:8]}; max |dvx| {dv!r} |dwz| {dw!r}; "
+          f"composed field max diff {dc!r}; decisions "
+          f"{[o['decision'] for o in replay[::10]]} (every 10th); pivots "
+          f"{sorted(set(o['pivot'] for o in replay))[:12]}")
+    check(not bad, f"session replay integers differ from JAX: {bad[:8]}")
+    check(max(dv, dw, dc) <= 1e-5, f"session replay off JAX: {dv} {dw} {dc}")
+    sess.close()
+
+    # 20. closed loop on the kernel path and on the plain path; the kernel
+    # path's ticks timed by CUDA events, its stages by the stage hook
+    def closed_loop(threaded=False, timed=False):
+        s_ = entry.make_session(sc, dev, threaded_plan_manager=threaded)
+        events, stages = [], []
+        if timed:
+            tick = s_.tick
+
+            def timed_tick(*a, **k):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                marks = []
+
+                def stage(name):
+                    ev = torch.cuda.Event(enable_timing=True)
+                    ev.record()
+                    marks.append((name, ev))
+                s_.driver.stage = stage
+                e0.record()
+                out = tick(*a, **k)
+                e1.record()
+                s_.driver.stage = None
+                events.append((e0, e1))
+                stages.append((marks, e1))
+                return out
+            s_.tick = timed_tick
+        try:
+            ch = entry.run_session_chain(s_, sc, entry.SESSION_TICKS)
+        finally:
+            s_.close()
+        torch.cuda.synchronize()
+        return ch, s_, events, stages
+
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(ops)
+    w0 = time.perf_counter()
+    chain, sess_k, events, stages = closed_loop(timed=True)
+    wall = time.perf_counter() - w0
+    launches = read_launches(ops)
+    tick_peak = torch.cuda.max_memory_allocated()
+    n = len(chain.vx)
+    print(f"launches in the {n}-tick session chain: {launches}")
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel was not launched in the session chain: {launches}")
+    with critics_calling(ops.swept_box_hits_plain,
+                         ops.masked_min_distance_plain):
+        plain, _, _, _ = closed_loop()
+    check(read_launches(ops) == launches, "plain chain launched a kernel")
+    for f in chain._fields:
+        a, b = getattr(chain, f), getattr(plain, f)
+        check(a.shape == b.shape and np.array_equal(a, b),
+              f"session chain {f} differs kernel vs plain")
+    pos = chain.pos
+    final = pos[-1] + np.array([chain.vx[-1] * np.cos(chain.yaw[-1]) * 0.1,
+                                chain.vx[-1] * np.sin(chain.yaw[-1]) * 0.1,
+                                0.0], np.float32)
+    to_goal = float(np.linalg.norm(final[:2] - sc.goal[:2]))
+    (wx0, wy0, _), (wx1, wy1, _) = entry.SESSION_WALL
+    dx = np.maximum(np.maximum(wx0 - pos[:, 0], pos[:, 0] - wx1), 0.0)
+    dy = np.maximum(np.maximum(wy0 - pos[:, 1], pos[:, 1] - wy1), 0.0)
+    clearance = float(np.hypot(dx, dy).min())
+    lo, hi = sc.no_entry.min(0), sc.no_entry.max(0)
+    entered = int(((pos[:, :2] >= lo[:2]) & (pos[:, :2] <= hi[:2]))
+                  .all(1).sum())
+    changes = [(int(t), int(chain.decision[t])) for t in range(n)
+               if t == 0 or chain.decision[t] != chain.decision[t - 1]]
+    print(f"session closed loop: kernel and plain paths equal bit for bit "
+          f"over {n} ticks; succeeded {bool(chain.succeeded[-1])} at tick "
+          f"{n - 1} ({n * 0.1:.1f} s simulated, {wall:.1f} s wall); final "
+          f"distance to goal {to_goal:.3f} m; least wall clearance "
+          f"{clearance:.3f} m; ticks in the no-entry zone {entered}; min y "
+          f"{float(pos[:, 1].min()):.2f} m; decision changes {changes}; "
+          f"golden chain {len(g['vx'])} ticks, succeeded "
+          f"{bool(g['succeeded'][-1])}")
+    check(bool(chain.succeeded[-1]) and to_goal < 0.6,
+          f"session did not succeed near the goal ({to_goal} m)")
+    check(clearance > 0.2, f"session came within {clearance} m of the wall")
+    check(entered == 0, "session entered the no-entry zone")
+
+    ticks_ms = np.asarray([a.elapsed_time(b) for a, b in events])
+    per_stage = {}
+    for marks, end in stages:
+        bounds = marks + [("end", end)]
+        for (name, a), (_, b) in zip(bounds, bounds[1:]):
+            per_stage.setdefault(name, []).append(a.elapsed_time(b))
+    per_tick_launches = {k: v / n for k, v in launches.items()}
+    print(f"session tick (kernel path, closed loop, n={ticks_ms.size}): "
+          f"median {float(np.median(ticks_ms))!r} ms, p95 "
+          f"{float(np.percentile(ticks_ms, 95))!r} ms, p99 "
+          f"{float(np.percentile(ticks_ms, 99))!r} ms, max "
+          f"{float(ticks_ms.max())!r} ms; kernel launches per tick "
+          f"{per_tick_launches}; peak device memory over the session ticks "
+          f"{tick_peak / 2**20:.1f} MiB ({held / 2**20:.1f} MiB held before "
+          f"them); card {card}")
+    print("session stages, median (mean, p99) ms per tick where run "
+          "(CUDA events at the stage hook): "
+          + "; ".join(f"{k} {float(np.median(v)):.3f} ({float(np.mean(v)):.3f}"
+                      f", {float(np.percentile(v, 99)):.3f}) over {len(v)}"
+                      for k, v in per_stage.items()))
+
+    # 21. the kernels at the session's call shapes, from the align-heading
+    # ticks at the start (both generators run), the later tick's collision
+    # calls with a ring that every rollout hits
+    calls = {name: [] for name in kernels}
+    cur = [0]
+
+    def recorder(name, fn):
+        def rec(*args):
+            if cur[0] in SESSION_CHECK_TICKS:
+                calls[name].append((cur[0], args))
+            return fn(*args)
+        return rec
+
+    def inputs(t, p_, y_):
+        cur[0] = t
+        return entry.session_inputs(sc, p_, y_)
+
+    s_chk = entry.make_session(sc, dev)
+    with critics_calling(recorder("swept_box_hits", ops.swept_box_hits),
+                         recorder("masked_min_distance",
+                                  ops.masked_min_distance)):
+        entry.run_session_chain(s_chk, sc, max(SESSION_CHECK_TICKS) + 1,
+                                inputs=inputs)
+    s_chk.close()
+    torch.cuda.synchronize()
+    calls = {name: [(t, with_ring(name, a, (0,)) if t == SESSION_RING_TICK
+                     else a) for t, a in cs] for name, cs in calls.items()}
+    per_check = {k: len(v) // len(SESSION_CHECK_TICKS)
+                 for k, v in calls.items()}
+    stats = check_kernels(kernels, calls, SESSION_CHECK_TICKS, per_check)
+
+    # 22. threaded plan manager to SUCCESS
+    w0 = time.perf_counter()
+    tch, t_sess, _, _ = closed_loop(threaded=True)
+    published = t_sess.driver.plan_manager.published
+    print(f"threaded session: succeeded {bool(tch.succeeded[-1])} after "
+          f"{len(tch.vx)} ticks ({time.perf_counter() - w0:.1f} s wall); the "
+          f"worker published {published} plans on its own CUDA stream")
+    check(bool(tch.succeeded[-1]), "threaded session did not succeed")
+    check(published > 0, "the plan worker published no plan")
+
+    # host syncs by call site, and a profile, over replayed ticks 30-39
+    r_sess = entry.make_session(sc, dev)
+    r_sess.set_goal(sc.goal)
+    inputs_rec = [entry.session_golden_inputs(g, t, sc)
+                  for t in range(min(int(g["replay_ticks"]), 60))]
+
+    def replay_tick(t):
+        x = inputs_rec[t]
+        for c, (cp, cq, dp) in enumerate(x["frames"]):
+            r_sess.push_depth_observation(c, cp, cq, dp, x["now"])
+        return r_sess.tick(x["pts"], x["mask"], x["pos"], x["quat"], x["v"],
+                           x["w"], x["now"])
+    for t in range(30):
+        replay_tick(t)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            replay_tick(30)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    sites = {}
+    for w in syncs:
+        site = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+        sites[site] = sites.get(site, 0) + 1
+    print(f"host syncs in replayed tick 30 (decision "
+          f"{int(g['decision'][30])}): {len(syncs)}; by call site: "
+          + ", ".join(f"{k} x{v}" for k, v in sorted(
+              sites.items(), key=lambda kv: -kv[1])))
+    s2 = [31]
+
+    def step():
+        replay_tick(s2[0])
+        s2[0] += 1
+    profile_ticks(step, SESSION_PROFILED_TICKS, kernels)
+    r_sess.close()
+    return {name: dict(launches=launches[name],
+                       launches_per_tick=launches[name] / n, **stats[name])
             for name in kernels}
 
 

@@ -1,0 +1,222 @@
+"""Global-plan managers: the move-base side of plan querying (counterpart
+of ``dddmr_navigation_tpu/control/plan_manager.py``,
+`P2PGlobalPlanManager`, `p2p_global_plan_manager.cpp`).
+
+A query timer at ``query_frequency`` (5 Hz) sends GetPlan goals to the
+plain planner ("get_plan") or the DWA planner ("get_dwa_plan"); ``stop()``
+halts the timer and stops the DWA recompute too (`:83-106`);
+``take_plan()`` hands the freshest path to the control loop once
+(`:174-186`).
+
+* :class:`SyncPlanManager` queries inline when the timer elapses.
+* :class:`AsyncPlanManager` runs the queries on a worker thread, so a slow
+  plan never stalls the control tick. On the card the worker plans on its
+  own CUDA stream: each ``offer()`` records an event on the tick's stream
+  after the distance field it hands over was produced; the worker's stream
+  waits on that event, and the worker synchronizes its stream before it
+  publishes a plan. On the default stream every plan would serialize with
+  the control tick.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from dddmr_navigation_tpu_torch.planning.global_.dwa import (
+    CachedPlan, DWAGlobalPlanManager)
+
+
+class _Snapshot:
+    __slots__ = ("robot_pos", "dgraph", "lethal_pts", "lethal_valid", "now",
+                 "ready")
+
+    def __init__(self, robot_pos, dgraph, lethal_pts, lethal_valid, now,
+                 ready):
+        self.robot_pos = robot_pos
+        self.dgraph = dgraph
+        self.lethal_pts = lethal_pts
+        self.lethal_valid = lethal_valid
+        self.now = now
+        self.ready = ready        # CUDA event after dgraph was made, or None
+
+
+class SyncPlanManager:
+    """Inline plan querying at ``query_frequency`` over a DWA manager.
+    ``action`` (`p2p_global_plan_manager.cpp:45-47`): "get_dwa_plan"
+    (default) uses the DWA cache and splice; "get_plan" replans in full
+    from the robot on every query."""
+
+    def __init__(self, dwa: DWAGlobalPlanManager, query_frequency: float,
+                 action: str = "get_dwa_plan"):
+        self.dwa = dwa
+        self.action = action
+        self.query_frequency = query_frequency
+        self.goal: Optional[tuple] = None
+        self.active = False
+        self._last_query_t = -1e9
+        self._plan: Optional[CachedPlan] = None
+        self._fresh = False
+        self._empty_result = False
+
+    def set_goal(self, goal_pos, goal_quat):
+        self.goal = (np.asarray(goal_pos, np.float32),
+                     np.asarray(goal_quat, np.float32))
+        self._plan = None
+        self._fresh = False
+        self.resume()
+
+    def resume(self):
+        self.active = True
+
+    def stop(self):
+        """Halt querying, and the DWA recompute with it
+        (`activate_threading=false`, `:96-105`)."""
+        self.active = False
+        self.dwa.threading_active = False
+
+    def has_plan(self) -> bool:
+        return self._fresh
+
+    def take_plan(self) -> Optional[CachedPlan]:
+        """copyPlan: hand over the freshest plan once."""
+        if not self._fresh:
+            return None
+        self._fresh = False
+        return self._plan
+
+    def last_query_empty(self) -> bool:
+        return self._empty_result
+
+    def _query(self, robot_pos, dgraph, now, lethal_pts, lethal_valid,
+               goal, recompute: bool):
+        """One GetPlan query (and, with ``recompute``, the DWA recompute
+        first). Returns the path or None."""
+        gp, gq = goal
+        if self.action == "get_dwa_plan":
+            if recompute:
+                self.dwa.maybe_recompute(robot_pos, dgraph, now,
+                                         lethal_pts=lethal_pts,
+                                         lethal_valid=lethal_valid)
+            return self.dwa.request(gp, gq, robot_pos, dgraph,
+                                    lethal_pts=lethal_pts,
+                                    lethal_valid=lethal_valid)
+        full = self.dwa.rt.plan(robot_pos, gp, dgraph, lethal_pts=lethal_pts,
+                                lethal_valid=lethal_valid)
+        return None if full is None else CachedPlan(*full)
+
+    def offer(self, robot_pos, dgraph, now, lethal_pts=None,
+              lethal_valid=None):
+        """Called every control tick with the live snapshot."""
+        if not (self.active and self.goal is not None):
+            return
+        if self.action == "get_dwa_plan":
+            # the windowed recompute rides its own (10 Hz) timer
+            self.dwa.maybe_recompute(robot_pos, dgraph, now,
+                                     lethal_pts=lethal_pts,
+                                     lethal_valid=lethal_valid)
+        if now - self._last_query_t < 1.0 / self.query_frequency:
+            return
+        self._last_query_t = now
+        path = self._query(robot_pos, dgraph, now, lethal_pts, lethal_valid,
+                           self.goal, recompute=False)
+        self._empty_result = path is None
+        if path is not None:
+            self._plan = path
+            self._fresh = True
+
+
+class AsyncPlanManager(SyncPlanManager):
+    """Thread-backed variant: ``offer()`` only records the snapshot; a
+    worker queries at the configured frequency, paced by the wall clock
+    (like the reference's timer). ``published`` counts the plans it
+    published."""
+
+    def __init__(self, dwa: DWAGlobalPlanManager, query_frequency: float,
+                 action: str = "get_dwa_plan"):
+        super().__init__(dwa, query_frequency, action=action)
+        self._lock = threading.Lock()
+        self._snapshot: Optional[_Snapshot] = None
+        self._shutdown = False
+        self.published = 0
+        dev = torch.device(dwa.rt.device)
+        self._stream = (torch.cuda.Stream(device=dev) if dev.type == "cuda"
+                        else None)
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def close(self):
+        self._shutdown = True
+        self._thread.join(timeout=5.0)
+
+    def set_goal(self, goal_pos, goal_quat):
+        """Swap the goal under the lock: the worker publishes a finished
+        plan only when the goal it planned for is still current, so a plan
+        for a superseded goal never surfaces as fresh."""
+        with self._lock:
+            super().set_goal(goal_pos, goal_quat)
+
+    def offer(self, robot_pos, dgraph, now, lethal_pts=None,
+              lethal_valid=None):
+        ready = None
+        if self._stream is not None:
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self._stream.device))
+        with self._lock:
+            self._snapshot = _Snapshot(
+                np.asarray(robot_pos, np.float32), dgraph, lethal_pts,
+                lethal_valid, now, ready)
+
+    def take_plan(self) -> Optional[CachedPlan]:
+        with self._lock:
+            return super().take_plan()
+
+    def stop(self):
+        """Stop, and discard what a query in flight would publish: the
+        worker re-checks ``active`` under the lock before publishing."""
+        with self._lock:
+            super().stop()
+            self._fresh = False
+
+    def _plan_from(self, snap: _Snapshot, goal):
+        if self._stream is None:
+            return self._query(snap.robot_pos, snap.dgraph, snap.now,
+                               snap.lethal_pts, snap.lethal_valid, goal,
+                               recompute=True)
+        with torch.cuda.stream(self._stream):
+            self._stream.wait_event(snap.ready)
+            path = self._query(snap.robot_pos, snap.dgraph, snap.now,
+                               snap.lethal_pts, snap.lethal_valid, goal,
+                               recompute=True)
+        self._stream.synchronize()
+        return path
+
+    def _worker(self):
+        period = 1.0 / self.query_frequency
+        while not self._shutdown:
+            t0 = time.monotonic()
+            snap = goal = None
+            with self._lock:
+                if self.active and self.goal is not None:
+                    snap, goal = self._snapshot, self.goal
+            if snap is not None:
+                try:
+                    path = self._plan_from(snap, goal)
+                    with self._lock:
+                        # a stop() or set_goal() may have raced the query
+                        if self.active and self.goal is goal:
+                            self._empty_result = path is None
+                            if path is not None:
+                                self._plan = path
+                                self._fresh = True
+                                self.published += 1
+                except Exception:  # pragma: no cover - the worker survives
+                    import traceback
+                    traceback.print_exc()
+            dt = period - (time.monotonic() - t0)
+            while dt > 0 and not self._shutdown:   # stay close()-responsive
+                time.sleep(min(dt, 0.05))
+                dt -= 0.05

@@ -18,10 +18,19 @@
   drifting odometry, mark/clear, one turning-wavefront relaxation for the
   fleet, the simple and rotate generators, the move-base FSM and the
   rotate recovery, on a 12×8 m warehouse floor (1,617 ground nodes).
+* :func:`session_config` / :func:`session_scenario` / :func:`make_session`
+  / :func:`session_inputs` / :func:`run_session_chain` — one robot's
+  ``control.session.NavigationSession`` (perception, depth cameras, zone
+  layers, DWA replans, the local planner, the move-base FSM) closed loop
+  through the repo's session demo (``examples/run_navigation_session.py``):
+  a 14×8 m floor at 0.2 m, a 2.8 m wall across the route, a no-entry zone
+  and a slow zone.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -35,6 +44,10 @@ from dddmr_navigation_tpu_torch.io.maps import (
 from dddmr_navigation_tpu_torch.control.fused import (
     build_fused_map, init_fused_state, make_fused_tick)
 from dddmr_navigation_tpu_torch.geometry import quat_from_yaw
+from dddmr_navigation_tpu_torch.interop import (
+    port_session_state, tick_of, to_numpy)
+from dddmr_navigation_tpu_torch.perception.depth_camera import (
+    CameraModel, frustum_planes, in_frustum)
 from dddmr_navigation_tpu_torch.perception.static_weights import (
     compute_node_weights)
 from dddmr_navigation_tpu_torch.utils.lidar_sim import BoxWorld, simulate_scan
@@ -508,3 +521,309 @@ def run_fleet_full_chain(c4: Config4, state, draws_of, ticks: int,
         for k in FLEET_DIAG:
             outs[k].append(diag[k])
     return {k: torch.stack(v) for k, v in outs.items()}, state
+
+
+# ---------------------------------------------------------------------------
+# the single-robot session (examples/run_navigation_session.py)
+# ---------------------------------------------------------------------------
+
+SESSION_START = (-3.0, 0.0, 0.0)
+SESSION_GOAL = (3.5, 0.0, 0.0)
+SESSION_WALL = ((-0.1, -1.4, 0.0), (0.1, 1.4, 1.2))   # across the route
+SESSION_OFFSET = (0.0, 0.0, 0.5)                      # lidar above the base
+SESSION_DT = 0.1
+SESSION_TICKS = 600
+# two depth cameras 0.4 m above the base, looking 0.4 rad left and right
+SESSION_CAM_OFFSET = (0.1, 0.0, 0.4)
+SESSION_CAM_YAWS = (0.4, -0.4)
+
+
+def session_config(range_rows: int = 32, range_cols: int = 360,
+                   window_xy: int = 72, window_z: int = 24,
+                   linear_x_sample: int = 5, angular_z_sample: int = 10,
+                   max_num_steps: int = 64) -> NavigationConfig:
+    """The session demo's configuration: ``NavigationConfig()`` (the
+    reference YAML's values) with a 32×360 range image over ±40°, every
+    azimuth effective, and a 72×72×24 window; smaller values give the same
+    configuration cut to a test's size."""
+    lidar = SpinningLidarConfig(
+        xy_resolution=0.1, height_resolution=0.1,
+        range_image_rows=range_rows, range_image_cols=range_cols,
+        vertical_FOV_bottom=-40.0, vertical_FOV_top=40.0,
+        scan_effective_positive_start=0.0, scan_effective_positive_end=180.0,
+        scan_effective_negative_start=0.0,
+        scan_effective_negative_end=-180.0)
+    cfg = NavigationConfig()
+    lp = cfg.local_planner
+    return dataclasses.replace(
+        cfg,
+        perception=PerceptionConfig(lidar=lidar,
+                                    voxel_window_cells_xy=window_xy,
+                                    voxel_window_cells_z=window_z),
+        local_planner=dataclasses.replace(lp, generator=dataclasses.replace(
+            lp.generator, linear_x_sample=linear_x_sample,
+            angular_z_sample=angular_z_sample, max_num_steps=max_num_steps)))
+
+
+def _grid_points(x0, x1, y0, y1, step=0.1):
+    xs = np.arange(x0, x1 + 1e-6, step)
+    ys = np.arange(y0, y1 + 1e-6, step)
+    gx, gy = np.meshgrid(xs, ys, indexing="ij")
+    return np.stack([gx.ravel(), gy.ravel(), np.zeros(gx.size)],
+                    1).astype(np.float32)
+
+
+class SessionScenario(NamedTuple):
+    cfg: NavigationConfig
+    ground: np.ndarray          # (G, 3)
+    world: object               # utils.lidar_sim.BoxWorld
+    start: np.ndarray           # (3,)
+    goal: np.ndarray            # (3,)
+    no_entry: np.ndarray        # (Z, 3) zone points
+    speed_zone: tuple           # ((Z, 3) points, (Z,) speeds)
+    camera: CameraModel
+    cameras: int
+    depth_points: int           # points kept per camera frame
+    buffer_depth: int
+    scan_rings: int
+    scan_cols: int
+
+
+def session_scenario(cfg: NavigationConfig = None, size=(14.0, 8.0),
+                     room_half: float = 6.0, start=SESSION_START,
+                     goal=SESSION_GOAL, wall=SESSION_WALL,
+                     no_entry=(-0.5, 0.5, 1.5, 4.0), slow_from: float = 1.5,
+                     depth_points: int = 1024, scan_rings: int = 24,
+                     scan_cols: int = 240) -> SessionScenario:
+    """The session demo's world (``BoxWorld.room(6.0, 1.5)`` with the wall
+    across the route), its route from (-3, 0) to (3.5, 0) over
+    ``flat_ground_map(14, 8, 0.2)`` (2,911 nodes), and what the demo leaves
+    out: two depth cameras (``CameraModel()``, 3-deep rings, 1,024 points,
+    fed from the same world), a no-entry zone at x ∈ [-0.5, 0.5],
+    y ∈ [1.5, 4.0] (the detour goes to the -y side) and a 0.2 m/s zone over
+    the last ``slow_from`` m before the goal. Smaller arguments cut it to a
+    test's size."""
+    cfg = cfg if cfg is not None else session_config()
+    world = BoxWorld.room(half=room_half, wall_h=1.5)
+    world.add_box(*wall)
+    goal = np.asarray(goal, np.float32)
+    zone = _grid_points(*no_entry)
+    slow = _grid_points(goal[0] - slow_from, goal[0], goal[1] - 0.5,
+                        goal[1] + 0.5, 0.25)
+    return SessionScenario(
+        cfg=cfg, ground=flat_ground_map(size[0], size[1], 0.2), world=world,
+        start=np.asarray(start, np.float32), goal=goal, no_entry=zone,
+        speed_zone=(slow, np.full((len(slow),), 0.2, np.float32)),
+        camera=CameraModel(), cameras=len(SESSION_CAM_YAWS),
+        depth_points=depth_points, buffer_depth=3, scan_rings=scan_rings,
+        scan_cols=scan_cols)
+
+
+def make_session(sc: SessionScenario, device="cuda",
+                 threaded_plan_manager: bool = False):
+    """The scenario's ``NavigationSession`` with its cameras and zones."""
+    from dddmr_navigation_tpu_torch.control.session import NavigationSession
+    return NavigationSession(
+        sc.cfg, sc.ground, no_entry_zones=sc.no_entry,
+        speed_zones=sc.speed_zone, sensor_offset=SESSION_OFFSET,
+        threaded_plan_manager=threaded_plan_manager,
+        depth_cameras=sc.cameras, depth_camera_model=sc.camera,
+        depth_buffer_depth=sc.buffer_depth, depth_max_points=sc.depth_points,
+        device=device)
+
+
+def session_scan(sc: SessionScenario, pos, yaw: float):
+    """The demo's sweep at a pose, in the sensor frame: 24×240 rays over
+    ±40° out to 15 m, returns below 0.15 m (the ground) masked."""
+    pos = np.asarray(pos, np.float32)
+    pts, mask = simulate_scan(
+        sc.world, pos + np.asarray(SESSION_OFFSET, np.float32),
+        sensor_yaw=yaw, n_rings=sc.scan_rings, n_cols=sc.scan_cols,
+        v_bottom=-40.0, v_top=40.0, max_range=15.0)
+    mask = mask & (pts[:, 2] + pos[2] + SESSION_OFFSET[2] >= 0.15)
+    return pts, mask
+
+
+def session_depth_frames(sc: SessionScenario, pos, yaw: float):
+    """Each camera's frame at a robot pose: rays cast from the camera into
+    the same world (``lidar_sim``), the returns inside its frustum and
+    above the floor (0.15 m), every k-th kept to at most
+    ``depth_points``. Returns a list of (cam_pos (3,), cam_quat (4,),
+    world points (n, 3))."""
+    cam = sc.camera
+    pos = np.asarray(pos, np.float32)
+    c, s = np.cos(yaw), np.sin(yaw)
+    off = np.asarray(SESSION_CAM_OFFSET, np.float32)
+    cam_pos = (pos + np.array([c * off[0] - s * off[1],
+                               s * off[0] + c * off[1], off[2]])
+               ).astype(np.float32)
+    frames = []
+    for dyaw in SESSION_CAM_YAWS:
+        cyaw = np.float32(yaw + dyaw)
+        quat = quat_from_yaw(torch.tensor([cyaw]))[0]
+        pts, mask = simulate_scan(
+            sc.world, cam_pos, sensor_yaw=float(cyaw), n_rings=24,
+            n_cols=360, v_bottom=-23.0, v_top=23.0,
+            max_range=cam.max_detect_distance)
+        ca, sa = np.cos(cyaw), np.sin(cyaw)
+        rot = np.array([[ca, -sa, 0], [sa, ca, 0], [0, 0, 1]], np.float32)
+        world_pts = (pts[mask] @ rot.T + cam_pos).astype(np.float32)
+        # the floor's returns dropped, as the scan's are
+        world_pts = world_pts[world_pts[:, 2] >= 0.15]
+        normals, planes = frustum_planes(cam, torch.from_numpy(cam_pos),
+                                         quat)
+        inside = in_frustum(normals, planes,
+                            torch.from_numpy(world_pts)).numpy()
+        world_pts = world_pts[inside]
+        if len(world_pts) > sc.depth_points:
+            world_pts = world_pts[::-(-len(world_pts) // sc.depth_points)]
+        frames.append((cam_pos, quat.numpy(), world_pts))
+    return frames
+
+
+def step_pose(pos, yaw: float, v: float, w: float, dt: float = SESSION_DT):
+    """The demo's perfect-execution step: (pos (3,) f32, yaw float)."""
+    pos = pos + np.array([v * np.cos(yaw) * dt, v * np.sin(yaw) * dt, 0.0],
+                         np.float32)
+    return pos, float(yaw + w * dt)
+
+
+def session_inputs(sc: SessionScenario, pos, yaw: float):
+    """One tick's sensor inputs at a pose: (scan points, scan mask, robot
+    quat (4,), depth frames)."""
+    pts, mask = session_scan(sc, pos, yaw)
+    quat = quat_from_yaw(torch.tensor([np.float32(yaw)]))[0].numpy()
+    return pts, mask, quat, session_depth_frames(sc, pos, yaw)
+
+
+class SessionChain(NamedTuple):
+    """Per-tick records of :func:`run_session_chain` (numpy, T ticks)."""
+    pos: np.ndarray            # (T, 3) pose each tick started from
+    yaw: np.ndarray            # (T,)
+    vx: np.ndarray             # (T,) commands
+    wz: np.ndarray             # (T,)
+    decision: np.ndarray       # (T,) int
+    done: np.ndarray           # (T,) bool
+    succeeded: np.ndarray      # (T,) bool
+    plan_count: np.ndarray     # (T,) poses of the adopted plan, 0 for none
+
+
+def run_session_chain(sess, sc: SessionScenario, ticks: int = SESSION_TICKS,
+                      inputs=None, on_tick=None) -> SessionChain:
+    """The scenario closed loop on ``sess`` (its goal set here): each tick
+    pushes the cameras' frames, ticks the session and steps the pose with
+    the command, until ``done`` or ``ticks`` ticks. ``inputs(t, pos, yaw)``
+    replaces :func:`session_inputs`; ``on_tick(t, result)`` sees each
+    tick's (vx, wz, decision, done, succeeded)."""
+    sess.set_goal(sc.goal)
+    pos, yaw, v, w = sc.start.copy(), 0.0, 0.0, 0.0
+    rec = {k: [] for k in SessionChain._fields}
+    for t in range(ticks):
+        now = t * SESSION_DT
+        pts, mask, quat, frames = (inputs or (
+            lambda _t, p, y: session_inputs(sc, p, y)))(t, pos, yaw)
+        for c, (cp, cq, dp) in enumerate(frames):
+            sess.push_depth_observation(c, cp, cq, dp, now)
+        out = sess.tick(pts, mask, pos, quat, v, w, now)
+        if on_tick is not None:
+            on_tick(t, out)
+        vx, wz, dec, done, ok = out
+        plan = sess.driver.plan
+        for k, val in (("pos", pos), ("yaw", yaw), ("vx", vx), ("wz", wz),
+                       ("decision", int(dec)), ("done", done),
+                       ("succeeded", ok),
+                       ("plan_count", 0 if plan is None
+                        else int(np.asarray(to_numpy(plan.count)).sum()))):
+            rec[k].append(val)
+        v, w = vx, wz
+        pos, yaw = step_pose(pos, yaw, v, w)
+        if done:
+            break
+    return SessionChain(**{k: np.asarray(v) for k, v in rec.items()})
+
+
+def session_golden_inputs(g, t: int, sc: SessionScenario) -> dict:
+    """Tick ``t``'s recorded inputs of a session golden record
+    (``tools/make_session_golden.py``): the scan (zeros where no ray
+    returned), the pose, twist and clock, each camera's frame, the state
+    the tick started from (``interop.session_fields`` names) with the
+    depth ring's points (``ring``) put back from the frames that filled
+    its slots, and the composed field after the tick (sparse)."""
+    r = tick_of(g, t, "tick_")
+    n = int(r["scan_n"])
+    pts = np.zeros((n, 3), np.float32)
+    pts[r["scan_idx"]] = r["scan_pts"]
+    mask = np.zeros((n,), bool)
+    mask[r["scan_idx"]] = True
+    frames = [(r[f"cam_pos{c}"], r[f"cam_quat{c}"], r[f"depth_pts{c}"])
+              for c in range(sc.cameras)]
+    state = {k[len("state_"):]: v for k, v in r.items()
+             if k.startswith("state_")}
+    stamp = state["depth_buffer_stamp"]
+    ring = np.zeros(stamp.shape + (sc.depth_points, 3), np.float32)
+    for c, k in zip(*np.nonzero(np.isfinite(stamp))):
+        src = int(round(float(stamp[c, k]) / SESSION_DT))
+        key = f"depth_pts{c}"
+        frame = tick_of(g, src, "tick_", [key])[key][:sc.depth_points]
+        ring[c, k, :len(frame)] = frame
+    return dict(pts=pts, mask=mask, pos=g["pos"][t], quat=r["quat"],
+                v=float(r["v"]), w=float(r["w"]), now=float(r["now"]),
+                frames=frames, state=state, ring=ring,
+                composed=(r["composed_idx"], r["composed_val"]))
+
+
+def replay_session(sess, sc: SessionScenario, g, forced: bool = False,
+                   ticks: int = None, first: int = 0) -> list:
+    """A session golden record's ticks ``first``, ``first + 1``, ... (all
+    by default) through ``sess`` (fresh; its goal set here), each from its
+    recorded inputs; with ``forced`` each tick first restores the recorded
+    state (``interop.port_session_state``). Returns per tick a dict of the
+    outputs the record holds."""
+    sess.set_goal(sc.goal)
+    dwa = sess.driver.plan_manager.dwa
+    out = []
+    if ticks is None:
+        ticks = int(g["replay_ticks"]) - first
+    for t in range(first, first + ticks):
+        x = session_golden_inputs(g, t, sc)
+        if forced:
+            sess.restore_state(port_session_state(x["state"], sess.device,
+                                                  x["ring"]))
+        for c, (cp, cq, dp) in enumerate(x["frames"]):
+            sess.push_depth_observation(c, cp, cq, dp, x["now"])
+        sess.driver.last_planner_state = -1
+        dwa.last_pivot = -1
+        vx, wz, dec, done, ok = sess.tick(x["pts"], x["mask"], x["pos"],
+                                          x["quat"], x["v"], x["w"], x["now"])
+        plan = sess.driver.plan
+        out.append(dict(
+            vx=vx, wz=wz, decision=int(dec), done=done, succeeded=ok,
+            planner_state=int(sess.driver.last_planner_state),
+            pivot=int(dwa.last_pivot),
+            plan_count=0 if plan is None else int(plan.count[0]),
+            composed=sess.composed_dgraph.cpu().numpy(),
+            want_composed=x["composed"]))
+    return out
+
+
+REPLAY_INTS = ("decision", "planner_state", "plan_count", "done",
+               "succeeded", "pivot")
+
+
+def replay_errors(g, out, first: int = 0) -> tuple:
+    """A replay's differences from its golden record (``out`` from tick
+    ``first`` on): (integer mismatches as (tick, name, got, want), max
+    |dvx|, max |dwz|, max composed-field difference)."""
+    bad, dv, dw, dc = [], 0.0, 0.0, 0.0
+    fill = float(g["tick_state_dgraph_fill"][0])
+    for t, o in enumerate(out, start=first):
+        for k in REPLAY_INTS:
+            if int(o[k]) != int(g[k][t]):
+                bad.append((t, k, int(o[k]), int(g[k][t])))
+        dv = max(dv, abs(o["vx"] - float(g["vx"][t])))
+        dw = max(dw, abs(o["wz"] - float(g["wz"][t])))
+        idx, val = o["want_composed"]
+        want = np.full_like(o["composed"], fill)
+        want[idx] = val
+        dc = max(dc, float(np.abs(o["composed"] - want).max()))
+    return bad, dv, dw, dc

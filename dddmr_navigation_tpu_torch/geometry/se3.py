@@ -134,6 +134,14 @@ def quat_rotate_fma(q, v):
     return fma(qw, t, v) + _cross_fma(qv, t)
 
 
+def quat_inverse_rotate_fma(q, v):
+    """Rotate vector(s) v by the inverse of quaternion(s) q, rounded as the
+    JAX package's jitted ``quat_inverse_rotate`` is on the CPU
+    (:func:`quat_rotate_fma` of the conjugate). The depth layer bins
+    camera-frame directions from it."""
+    return quat_rotate_fma(quat_conjugate(q), v)
+
+
 def quat_multiply_fma(q1, q2):
     """:func:`quat_multiply` rounded as the JAX package's jitted
     quat_multiply is on the CPU: each component a chain of fused

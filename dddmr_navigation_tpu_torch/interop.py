@@ -172,3 +172,236 @@ def port_draws(draws, device):
     from dddmr_navigation_tpu_torch.state_estimation.pf import MCLDraws
     return MCLDraws(*(torch.as_tensor(draws[k], device=device)
                       for k in DRAW_KEYS))
+
+
+# ---------------------------------------------------------------------------
+# the navigation session's state (control.session.NavigationSession)
+# ---------------------------------------------------------------------------
+
+def _np(x):
+    return np.asarray(to_numpy(x))
+
+
+def _sparse(prefix, dense, fill, out):
+    flat = _np(dense).reshape(-1)
+    idx = np.flatnonzero(flat != fill).astype(np.int32)
+    out[f"{prefix}_idx"] = idx
+    out[f"{prefix}_val"] = flat[idx]
+
+
+def _path(prefix, positions, quats, out):
+    """A host path (or None) as its (n, 3) positions and (n, 4) quats; a
+    missing path has ``{prefix}_on`` False and n = 0."""
+    out[f"{prefix}_on"] = np.asarray(positions is not None)
+    out[f"{prefix}_pos"] = (np.zeros((0, 3), np.float32) if positions is None
+                            else _np(positions).reshape(-1, 3))
+    out[f"{prefix}_quat"] = (np.zeros((0, 4), np.float32) if quats is None
+                             else _np(quats).reshape(-1, 4))
+
+
+def _marking(prefix, m, fill, out):
+    _sparse(f"{prefix}_grid", m.grid, 0, out)
+    _sparse(f"{prefix}_dgraph", m.dgraph, fill, out)
+    out[f"{prefix}_origin"] = _np(m.origin).reshape(3)
+    out[f"{prefix}_clear_offset"] = _np(m.clear_offset).reshape(())
+
+
+def session_fields(sess) -> dict:
+    """Everything a navigation session (the JAX package's or the port's:
+    the same attribute names) carries from tick to tick, as numpy by
+    name: its ``checkpoint_state()`` (the marking grids and fields stored
+    sparse, the FSM, the move-base field, the depth ring's slots except
+    their points, which the frames pushed give back), the adopted plan,
+    the recovery, the plan manager's and the DWA manager's caches and
+    timers, and the session's host clocks. :func:`port_session_state`
+    turns it back into the port's state."""
+    fill = float(sess.cfg.perception.max_obstacle_distance)
+    d = sess.driver
+    pm, dwa = d.plan_manager, d.plan_manager.dwa
+    out = {"ground_nodes": np.asarray(len(sess.ground)),
+           "grid_shape": np.asarray(_np(sess.marking.grid).shape[-3:]),
+           "dgraph_fill": np.asarray(fill, np.float32)}
+    _marking("marking", sess.marking, fill, out)
+    _sparse("driver_dgraph", d.dgraph, fill, out)
+    for f in ("decision", "last_valid_plan", "last_valid_control",
+              "last_oscillation_reset", "oscillation_pos", "oscillation_yaw",
+              "waiting_time", "no_plan_recovery_count"):
+        out[f"fsm_{f}"] = _np(getattr(d.fsm, f)).reshape(
+            (3,) if f == "oscillation_pos" else ())
+    if getattr(sess, "n_depth_cameras", 0) > 0:
+        _marking("depth_marking", sess.depth_marking, fill, out)
+        buf = sess.depth_buffer
+        c, n = _np(buf.stamp).shape[-2:]
+        out["depth_buffer_stamp"] = _np(buf.stamp).reshape(c, n)
+        out["depth_buffer_head"] = _np(buf.head).reshape(c)
+        out["depth_buffer_cam_pos"] = _np(buf.cam_pos).reshape(c, n, 3)
+        out["depth_buffer_cam_quat"] = _np(buf.cam_quat).reshape(c, n, 4)
+        out["depth_buffer_mask"] = _np(buf.mask).reshape(c, n, -1)
+    plan = d.plan
+    if plan is None:
+        _path("plan", None, None, out)
+    else:
+        k = int(_np(plan.count).reshape(()))
+        _path("plan", _np(plan.positions).reshape(-1, 3)[:k],
+              _np(plan.quats).reshape(-1, 4)[:k], out)
+    rec = d.recovery
+    out["recovery_on"] = np.asarray(rec is not None)
+    out["recovery_start_yaw"] = np.asarray(
+        0.0 if rec is None else _np(rec.start_yaw).reshape(()), np.float32)
+    out["recovery_got_180"] = np.asarray(
+        False if rec is None else bool(_np(rec.got_180).reshape(())))
+    out["recovery_succeed"] = np.asarray(bool(d.recovery_succeed))
+    cached = pm._plan
+    _path("pm_plan", None if cached is None else cached.positions,
+          None if cached is None else cached.quats, out)
+    out["pm_fresh"] = np.asarray(bool(pm._fresh))
+    out["pm_empty_result"] = np.asarray(bool(pm._empty_result))
+    out["pm_last_query_t"] = np.asarray(pm._last_query_t, np.float64)
+    out["pm_active"] = np.asarray(bool(pm.active))
+    goal = dwa.current_goal
+    out["dwa_goal_on"] = np.asarray(goal is not None)
+    out["dwa_goal_pos"] = (np.zeros(3, np.float32) if goal is None
+                           else np.asarray(goal[0], np.float32))
+    out["dwa_goal_quat"] = (np.zeros(4, np.float32) if goal is None
+                            else np.asarray(goal[1], np.float32))
+    for name in ("global_path", "dwa_path"):
+        p = getattr(dwa, name)
+        _path(f"dwa_{name}", None if p is None else p.positions,
+              None if p is None else p.quats, out)
+    out["dwa_threading_active"] = np.asarray(bool(dwa.threading_active))
+    out["dwa_last_recompute_t"] = np.asarray(dwa.last_recompute_t,
+                                             np.float64)
+    out["last_perception_t"] = np.asarray(sess._last_perception_t,
+                                          np.float64)
+    for k in ("scan", "odom"):
+        out[f"gate_{k}"] = np.asarray(sess.gate._last.get(k, np.nan),
+                                      np.float64)
+    return out
+
+
+def _dense(f, prefix, shape, fill, dtype, device):
+    flat = np.full(int(np.prod(shape)), fill, dtype)
+    flat[f[f"{prefix}_idx"]] = f[f"{prefix}_val"]
+    return tensor(flat.reshape((1,) + tuple(shape)), device)
+
+
+def port_session_state(f: dict, device, depth_points=None) -> dict:
+    """The port's session state from :func:`session_fields` (of the JAX
+    package's session or the port's), for ``NavigationSession.
+    restore_state``: the checkpoint dict (B = 1) plus ``"host"``, the
+    adopted plan (a ``CachedPlan``), the recovery, the manager caches and
+    the clocks.
+    ``depth_points`` (C, N, P, 3) are the depth ring's points (the frames
+    pushed into its slots)."""
+    from dddmr_navigation_tpu_torch.control.fsm import FSMState
+    from dddmr_navigation_tpu_torch.control.recovery import (
+        RotateRecoveryState)
+    from dddmr_navigation_tpu_torch.perception.depth_camera import (
+        DepthCameraBuffer)
+    from dddmr_navigation_tpu_torch.perception.marking import MarkingState
+    from dddmr_navigation_tpu_torch.planning.global_.dwa import CachedPlan
+
+    g = int(f["ground_nodes"])
+    shape = tuple(int(x) for x in f["grid_shape"])
+    fill = float(f["dgraph_fill"])
+
+    def marking(prefix):
+        return MarkingState(
+            grid=_dense(f, f"{prefix}_grid", shape, 0, np.uint8, device),
+            origin=tensor(f[f"{prefix}_origin"].astype(np.int32)[None],
+                          device),
+            dgraph=_dense(f, f"{prefix}_dgraph", (g,), fill, np.float32,
+                          device),
+            clear_offset=tensor(np.asarray(
+                f[f"{prefix}_clear_offset"], np.int32).reshape(1), device))
+
+    fsm = FSMState(**{k: tensor(np.asarray(f[f"fsm_{k}"])[None], device)
+                      for k in FSMState._fields})
+    fsm = fsm._replace(decision=fsm.decision.int(),
+                       no_plan_recovery_count=fsm.no_plan_recovery_count.int())
+    state = {"marking": marking("marking"), "fsm": fsm,
+             "dgraph": _dense(f, "driver_dgraph", (g,), fill, np.float32,
+                              device)[0]}
+    if "depth_marking_origin" in f:
+        state["depth_marking"] = marking("depth_marking")
+        mask = f["depth_buffer_mask"]
+        pts = (np.zeros(mask.shape + (3,), np.float32) if depth_points is None
+               else np.asarray(depth_points, np.float32))
+        state["depth_buffer"] = DepthCameraBuffer(
+            cam_pos=tensor(f["depth_buffer_cam_pos"][None], device),
+            cam_quat=tensor(f["depth_buffer_cam_quat"][None], device),
+            points=tensor(pts[None], device), mask=tensor(mask[None], device),
+            stamp=tensor(f["depth_buffer_stamp"][None], device),
+            head=tensor(f["depth_buffer_head"].astype(np.int32)[None],
+                        device))
+
+    def path(prefix):
+        if not bool(f[f"{prefix}_on"]):
+            return None
+        return CachedPlan(np.asarray(f[f"{prefix}_pos"], np.float32),
+                          np.asarray(f[f"{prefix}_quat"], np.float32))
+
+    recovery = None
+    if bool(f["recovery_on"]):
+        recovery = RotateRecoveryState(
+            start_yaw=tensor(np.asarray(f["recovery_start_yaw"],
+                                        np.float32).reshape(1), device),
+            got_180=tensor(np.asarray(f["recovery_got_180"]).reshape(1),
+                           device),
+            active=tensor(np.ones(1, bool), device))
+    goal = None
+    if bool(f["dwa_goal_on"]):
+        goal = (np.asarray(f["dwa_goal_pos"], np.float32),
+                np.asarray(f["dwa_goal_quat"], np.float32))
+    gate = {k: float(f[f"gate_{k}"]) for k in ("scan", "odom")
+            if np.isfinite(f[f"gate_{k}"])}
+    state["host"] = {
+        "plan": path("plan"), "recovery": recovery,
+        "recovery_succeed": bool(f["recovery_succeed"]),
+        "pm_plan": path("pm_plan"), "pm_fresh": bool(f["pm_fresh"]),
+        "pm_empty_result": bool(f["pm_empty_result"]),
+        "pm_last_query_t": float(f["pm_last_query_t"]),
+        "pm_active": bool(f["pm_active"]),
+        "dwa_current_goal": goal,
+        "dwa_global_path": path("dwa_global_path"),
+        "dwa_path": path("dwa_dwa_path"),
+        "dwa_threading_active": bool(f["dwa_threading_active"]),
+        "dwa_last_recompute_t": float(f["dwa_last_recompute_t"]),
+        "last_perception_t": float(f["last_perception_t"]),
+        "gate_last": gate}
+    return state
+
+
+def pack_ticks(records: list, prefix: str = "") -> dict:
+    """Per-tick dicts of numpy arrays stacked over ticks, each key stored
+    as ``prefix + key``: a key whose arrays differ in shape is
+    concatenated along axis 0, with its per-tick lengths under
+    ``{prefix}{key}__len``. :func:`tick_of` unpacks tick t."""
+    out = {}
+    for k in records[0]:
+        arrs = [np.asarray(r[k]) for r in records]
+        if all(a.shape == arrs[0].shape for a in arrs):
+            out[prefix + k] = np.stack(arrs)
+        else:
+            out[prefix + k] = np.concatenate(arrs)
+            out[f"{prefix}{k}__len"] = np.asarray([len(a) for a in arrs],
+                                                  np.int64)
+    return out
+
+
+def tick_of(packed, t: int, prefix: str = "", keys=None) -> dict:
+    """Tick ``t``'s dict of a :func:`pack_ticks` record stored under
+    ``prefix`` (``keys``: the names to read, default all), without the
+    prefix."""
+    names = keys or [k[len(prefix):] for k in packed.keys()
+                     if k.startswith(prefix) and not k.endswith("__len")]
+    out = {}
+    for k in names:
+        key = prefix + k
+        if f"{key}__len" in packed:
+            lens = packed[f"{key}__len"]
+            start = int(lens[:t].sum())
+            out[k] = packed[key][start:start + int(lens[t])]
+        else:
+            out[k] = packed[key][t]
+    return out

@@ -3,4 +3,5 @@ from dddmr_navigation_tpu_torch.io.maps import (
     box_obstacle,
     flat_ground_map,
     multi_level_map,
+    voxel_downsample,
 )

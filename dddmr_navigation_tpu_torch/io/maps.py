@@ -1,7 +1,8 @@
 """Synthetic map builders used by tests and benchmarks.
 
-The port's own copy of ``flat_ground_map``, ``multi_level_map`` and
-``box_obstacle`` from ``dddmr_navigation_tpu/io/maps.py`` (numpy only).
+The port's own copy of ``voxel_downsample``, ``flat_ground_map``,
+``multi_level_map`` and ``box_obstacle`` from
+``dddmr_navigation_tpu/io/maps.py`` (numpy only).
 
 The reference ships demo PCD maps (`dddmr_perception_3d/map/ground.pcd`,
 `map.pcd`) and a 2D-occupancy→ground generator (`occupancy2ground.cpp`); we
@@ -10,6 +11,19 @@ generate equivalent synthetic grounds procedurally.
 from __future__ import annotations
 
 import numpy as np
+
+
+def voxel_downsample(points: np.ndarray, leaf: float) -> np.ndarray:
+    """Voxel-grid downsample (centroid per occupied voxel), mirroring
+    pcl::VoxelGrid semantics used throughout the reference."""
+    if len(points) == 0:
+        return points
+    keys = np.floor(points[:, :3] / leaf).astype(np.int64)
+    # Unique voxels -> centroid of member points.
+    _, inv, counts = np.unique(keys, axis=0, return_inverse=True, return_counts=True)
+    sums = np.zeros((counts.shape[0], points.shape[1]), dtype=np.float64)
+    np.add.at(sums, inv, points)
+    return (sums / counts[:, None]).astype(np.float32)
 
 
 def flat_ground_map(size_x: float = 20.0, size_y: float = 20.0,

@@ -13,7 +13,8 @@ import torch
 
 from dddmr_navigation_tpu_torch.geometry import (
     quat_rotate_fma, quat_conjugate)
-from dddmr_navigation_tpu_torch.rounding import fma_dot, fma_norm, recip
+from dddmr_navigation_tpu_torch.rounding import (
+    asin_xla, atan2_xla, fma, fma_dot, fma_norm, recip_times)
 
 # jnp.degrees multiplies by the f32 constant 180/pi.
 _RAD2DEG = float(np.float32(180.0 / np.pi))
@@ -27,8 +28,8 @@ class RangeImageSpec(NamedTuple):
     max_range: float = 100.0
 
 
-def sensor_frame_spherical(sensor_pos, sensor_quat, pts):
-    """(range, elevation_deg, azimuth_deg) of global points (B, N, 3)
+def spherical_rad(sensor_pos, sensor_quat, pts):
+    """(range, elevation, azimuth) in radians of global points (B, N, 3)
     w.r.t. each robot's sensor pose (B, 3), (B, 4)."""
     d = pts - sensor_pos[:, None, :]
     rng = fma_norm(d)
@@ -36,10 +37,16 @@ def sensor_frame_spherical(sensor_pos, sensor_quat, pts):
     normal = quat_rotate_fma(sensor_quat, z.expand_as(sensor_pos))     # (B, 3)
     p2plane = fma_dot(d, normal[:, None, :])
     safe_rng = torch.clamp(rng, min=1e-9)
-    elev = torch.asin(torch.clamp(p2plane / safe_rng, -1.0, 1.0)) * _RAD2DEG
+    elev = asin_xla(torch.clamp(p2plane / safe_rng, -1.0, 1.0))
     d_s = quat_rotate_fma(quat_conjugate(sensor_quat)[:, None, :], d)
-    azim = torch.atan2(d_s[..., 1], d_s[..., 0]) * _RAD2DEG
-    return rng, elev, azim
+    return rng, elev, atan2_xla(d_s[..., 1], d_s[..., 0])
+
+
+def sensor_frame_spherical(sensor_pos, sensor_quat, pts):
+    """(range, elevation_deg, azimuth_deg) of global points (B, N, 3)
+    w.r.t. each robot's sensor pose (B, 3), (B, 4)."""
+    rng, elev, azim = spherical_rad(sensor_pos, sensor_quat, pts)
+    return rng, elev * _RAD2DEG, azim * _RAD2DEG
 
 
 def in_fov(elev_deg, azim_deg, *, vertical_FOV_bottom, vertical_FOV_top,
@@ -54,13 +61,15 @@ def in_fov(elev_deg, azim_deg, *, vertical_FOV_bottom, vertical_FOV_top,
     return vert_ok & (pos_ok | neg_ok)
 
 
-def bins(spec: RangeImageSpec, elev_deg, azim_deg):
-    """Range-image (row, col) of each direction; float→int truncates."""
-    er = ((elev_deg - spec.elev_min_deg)
-          * recip(max(spec.elev_max_deg - spec.elev_min_deg, 1e-6))
-          * spec.rows)
+def bins(spec: RangeImageSpec, elev, azim):
+    """Range-image (row, col) of each direction, from radians; float→int
+    truncates. The JAX package's jitted program converts to degrees and
+    adds the offset in one fused multiply-add, then multiplies by the
+    folded bin constant."""
+    er = fma(elev, _RAD2DEG, -spec.elev_min_deg) * recip_times(
+        max(spec.elev_max_deg - spec.elev_min_deg, 1e-6), spec.rows)
     row = torch.clamp(er.int(), 0, spec.rows - 1)
-    ac = (azim_deg + 180.0) * recip(360.0) * spec.cols
+    ac = fma(azim, _RAD2DEG, 180.0) * recip_times(360.0, spec.cols)
     col = torch.clamp(ac.int(), 0, spec.cols - 1)
     return row, col
 
@@ -71,7 +80,7 @@ def build_range_image(spec: RangeImageSpec, sensor_pos, sensor_quat,
     hold ``max_range``. A min is order-free, so the scatter is
     deterministic."""
     b = scan_pts.shape[0]
-    rng, elev, azim = sensor_frame_spherical(sensor_pos, sensor_quat, scan_pts)
+    rng, elev, azim = spherical_rad(sensor_pos, sensor_quat, scan_pts)
     row, col = bins(spec, elev, azim)
     rng = torch.where(scan_mask & torch.isfinite(rng), rng, spec.max_range)
     cells = spec.rows * spec.cols

@@ -25,7 +25,8 @@ from dddmr_navigation_tpu_torch.perception.voxel import (
     VoxelSpec, world_to_cell, cell_to_world, window_origin_for, in_window,
     scroll_grid)
 from dddmr_navigation_tpu_torch.perception.fov import (
-    RangeImageSpec, sensor_frame_spherical, in_fov, build_range_image, bins)
+    _RAD2DEG, RangeImageSpec, bins, build_range_image, in_fov,
+    sensor_frame_spherical, spherical_rad)
 from dddmr_navigation_tpu_torch.perception.clustering import (
     label_components, label_components_pooled, cluster_table)
 from dddmr_navigation_tpu_torch.perception.static_map import (
@@ -155,8 +156,8 @@ def clear_marked(spec: VoxelSpec, ri_spec: RangeImageSpec,
     idx = torch.where(valid, (idx_rot + off[:, None]) % n_cells, -1)
     pos = cell_to_world(spec, _cells_of(spec, torch.clamp(idx, min=0), origin))
 
-    rng, elev, azim = sensor_frame_spherical(sensor_pos, sensor_quat, pos)
-    fov = params.fov(elev, azim)
+    rng, elev, azim = spherical_rad(sensor_pos, sensor_quat, pos)
+    fov = params.fov(elev * _RAD2DEG, azim * _RAD2DEG)
     row, col = bins(ri_spec, elev, azim)
     scan_r = pooled.view(b, -1).gather(1, row.long() * ri_spec.cols + col.long())
     blocked = scan_r < rng - params.clear_range_margin

@@ -22,7 +22,8 @@ from typing import NamedTuple
 
 import torch
 
-from dddmr_navigation_tpu_torch.rounding import exp_fma, fma_norm
+from dddmr_navigation_tpu_torch.rounding import (
+    acos_xla, atan2_xla, exp_fma, fma_dot, fma_norm, recip)
 from dddmr_navigation_tpu_torch.ops.fixpoint import iterate_to_fixpoint
 
 
@@ -46,17 +47,23 @@ def node_costs(dgraph, node_weight, *, inscribed_radius,
 
 
 def edge_azimuth(positions, nbr_idx):
-    """(G, K) XY azimuth of each edge u→v."""
+    """(G, K) XY azimuth of each edge u→v, with XLA's atan2
+    (``rounding.atan2_xla``). Map geometry: built once."""
     safe = torch.clamp(nbr_idx, min=0).long()
     d = positions[safe] - positions[:, None, :]
-    return torch.atan2(d[..., 1], d[..., 0])
+    return atan2_xla(d[..., 1], d[..., 0])
 
 
-def edge_bins(az, n_dir_bins: int):
+def edge_bins(az, n_dir_bins: int, jit: bool = False):
     """floor((az + π) / 2π · B) mod B, the JAX package's eager rounding
-    (a true division)."""
-    return torch.remainder(torch.floor(
-        (az + math.pi) / (2.0 * math.pi) * n_dir_bins).int(), n_dir_bins)
+    (a true division); ``jit=True`` rounds as its jitted planner does,
+    which computes the bins inside the program (a multiply by the f32
+    reciprocal of 2π)."""
+    if jit:
+        frac = (az + math.pi) * recip(2.0 * math.pi)
+    else:
+        frac = (az + math.pi) / (2.0 * math.pi)
+    return torch.remainder(torch.floor(frac * n_dir_bins).int(), n_dir_bins)
 
 
 def _wrap_angle(a):
@@ -68,32 +75,37 @@ def _theta_capped(theta_abs):
     return torch.where(theta_abs <= 0.345, 0.0, theta_abs)
 
 
-def theta_reference(p_parent, p_cur, p_exp):
+def theta_reference(p_parent, p_cur, p_exp, jit: bool = False):
     """`getThetaFromParent2Expanding` (`a_star_on_pc.cpp:142-166`), quirks
     included: zero for vanishing XY vectors, zero when the |x| components
     agree within 1e-4, dead zone ≤ 0.345 rad. Rounded as the JAX package
     builds its turning table, op by op: the dot's products round before
     their sum, while ``jnp.linalg.norm`` is one compiled call (an FMA
-    chain)."""
+    chain), and the arccos is XLA's (``rounding.acos_xla``); ``jit=True``
+    makes the dot an FMA chain too, as in the jitted planner, which builds
+    the table inside the program."""
     v1 = (p_cur - p_parent)[..., :2]
     v2 = (p_exp - p_cur)[..., :2]
     n1 = fma_norm(v1)
     n2 = fma_norm(v2)
-    cos_t = torch.sum(v1 * v2, dim=-1) / torch.clamp(n1 * n2, min=1e-12)
-    theta = torch.acos(torch.clamp(cos_t, -1.0, 1.0))
+    dot = fma_dot(v1, v2) if jit else torch.sum(v1 * v2, dim=-1)
+    cos_t = dot / torch.clamp(n1 * n2, min=1e-12)
+    theta = acos_xla(torch.clamp(cos_t, -1.0, 1.0))
     zero = ((n1 == 0.0) | (n2 == 0.0)
             | (torch.abs(torch.abs(v1[..., 0]) - torch.abs(v2[..., 0])) <= 1e-4))
     return _theta_capped(torch.where(zero, 0.0, theta))
 
 
-def turning_penalty_table(nbr_idx, positions, turning_weight: float):
+def turning_penalty_table(nbr_idx, positions, turning_weight: float,
+                          jit: bool = False):
     """(G, K, K) w_turn·θ for every (arrival edge u→v, out-edge v→w) pair,
-    exact reference θ from the actual parent. Map geometry: built once."""
+    exact reference θ from the actual parent. Map geometry: built once.
+    ``jit`` as in :func:`theta_reference`."""
     safe = torch.clamp(nbr_idx, min=0).long()
     pos_u = positions[:, None, None, :]
     pos_v = positions[safe][:, :, None, :]
     pos_w = positions[safe][safe]
-    return turning_weight * theta_reference(pos_u, pos_v, pos_w)
+    return turning_weight * theta_reference(pos_u, pos_v, pos_w, jit)
 
 
 def _goal_mask(goal_idx, g):

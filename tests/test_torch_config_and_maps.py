@@ -132,3 +132,53 @@ def test_simulate_scan_matches_on_config3_world(yaw):
     np.testing.assert_array_equal(tm, jm)
     np.testing.assert_array_equal(tp, jp)
     assert jm.any() and not jm.all()
+
+
+def test_voxel_downsample_matches():
+    rng = np.random.default_rng(5)
+    pts = (rng.normal(0, 1.5, (3000, 3))).astype(np.float32)
+    for leaf in (0.1, 0.25):
+        np.testing.assert_array_equal(tmaps.voxel_downsample(pts, leaf),
+                                      jmaps.voxel_downsample(pts, leaf))
+    empty = np.zeros((0, 3), np.float32)
+    assert tmaps.voxel_downsample(empty, 0.1).shape == (0, 3)
+
+
+@pytest.mark.parametrize("num", [0, 1, 3])
+def test_scan_stitcher_matches(num):
+    from dddmr_navigation_tpu.perception.stitcher import ScanStitcher as J
+    from dddmr_navigation_tpu_torch.perception.stitcher import (
+        ScanStitcher as T)
+    rng = np.random.default_rng(num)
+    j, t = J(num, pad_to=500), T(num, pad_to=500)
+    for _ in range(5):
+        pts = rng.uniform(-5, 5, (300, 3)).astype(np.float32)
+        mask = rng.uniform(size=300) < 0.6
+        (jp, jm), (tp, tm) = j.push(pts, mask), t.push(pts, mask)
+        np.testing.assert_array_equal(tp, jp)
+        np.testing.assert_array_equal(tm, jm)
+    j.clear()
+    t.clear()
+
+
+def test_watchdog_matches():
+    from dddmr_navigation_tpu.runtime import watchdog as jw
+    from dddmr_navigation_tpu_torch.runtime import watchdog as tw
+    gates = [m.FreshnessGate(expected_dt={"lidar": 0.2, "odom": 0.3})
+             for m in (jw, tw)]
+    for name, now in (("lidar", 10.0), ("odom", 10.05), ("lidar", 10.4)):
+        for gate in gates:
+            gate.update(name, now=now)
+        for q in (10.1, 10.3, 10.36, 10.5):
+            assert gates[0].ok(now=q) == gates[1].ok(now=q)
+            assert (gates[0].is_current("odom", now=q)
+                    == gates[1].is_current("odom", now=q))
+    monitors = [m.TickMonitor(budget_ms=0.0, window=3) for m in (jw, tw)]
+    for mon in monitors:
+        for _ in range(5):
+            mon.start()
+            mon.stop()
+    a, b = (mon.stats() for mon in monitors)
+    assert a.keys() == b.keys()
+    assert (a["ticks"], a["deadline_misses"]) == (b["ticks"],
+                                                  b["deadline_misses"])

@@ -105,6 +105,9 @@ def test_build_fused_map_matches_jax(flat, which):
     for f in tf.FusedMap._fields:
         if f in ("map_ctx", "wf_az", "turn_pen"):
             continue
+        if getattr(want, f) is None:            # the zone fields, no zones
+            assert getattr(got, f) is None, f
+            continue
         assert torch.equal(getattr(got, f), getattr(want, f)), f
     torch.testing.assert_close(got.wf_az, want.wf_az, atol=1e-6, rtol=0)
     torch.testing.assert_close(got.turn_pen, want.turn_pen, atol=1e-6,
@@ -324,19 +327,132 @@ def test_fused_chain_five_ticks_matches_jax(small):
 
 
 def test_unported_options_raise(small):
+    """The former stand-ins are gone: depth cameras, zones, the DWA
+    manager and the runtime are accepted and importable."""
     cfg, c3, *_ = small
-    with pytest.raises(NotImplementedError, match="depth"):
-        tf.make_fused_tick(cfg, depth_cam=object())
-    with pytest.raises(NotImplementedError, match="depth"):
-        tf.init_fused_state(cfg, 4, torch.zeros(1, 3), depth_cameras=1)
-    with pytest.raises(NotImplementedError, match="zone"):
-        tf.build_fused_map(cfg, flat_ground_map(2, 2, 0.5),
-                           no_entry_zones=np.zeros((1, 3)), device="cpu")
-    from dddmr_navigation_tpu_torch.planning import global_
-    for name in ("dwa", "runtime", "DWAGlobalPlanManager",
-                 "GlobalPlannerRuntime"):
-        with pytest.raises(NotImplementedError, match=name):
-            getattr(global_, name)
+    from dddmr_navigation_tpu_torch.perception.depth_camera import (
+        CameraModel)
+    assert tf.make_fused_tick(cfg, depth_cam=CameraModel())[0] is not None
+    state = tf.init_fused_state(cfg, 4, torch.zeros(1, 3), depth_cameras=1)
+    assert state.depth_buffer.points.shape == (1, 1, 3, 512, 3)
+    fmap = tf.build_fused_map(cfg, flat_ground_map(2, 2, 0.5),
+                              no_entry_zones=np.zeros((1, 3)), device="cpu")
+    assert fmap.no_entry_field.shape == (25,)
+    from dddmr_navigation_tpu_torch.planning.global_ import dwa, runtime
+    assert dwa.DWAGlobalPlanManager and runtime.GlobalPlannerRuntime
+
+
+# a no-entry patch between robot 0 and the ramp; a slow zone around robot 1
+NO_ENTRY = np.stack(np.meshgrid(np.arange(6.0, 7.01, 0.25),
+                                np.arange(6.0, 7.51, 0.25), [0.0]),
+                    -1).reshape(-1, 3).astype(np.float32)
+SPEED_PTS = np.stack(np.meshgrid(np.arange(1.0, 3.01, 0.25),
+                                 np.arange(5.0, 7.01, 0.25), [0.0]),
+                     -1).reshape(-1, 3).astype(np.float32)
+
+
+def depth_frames(rng, pos, quat, n_cams=2, p=512):
+    """Each robot's frames of two cameras 0.4 m above it, one looking
+    ahead and one 0.5 rad to the left: points on a wall 1.2 m ahead (world
+    frame), a random share of them masked."""
+    b = len(pos)
+    cam_pos = np.zeros((b, n_cams, 3), np.float32)
+    cam_quat = np.zeros((b, n_cams, 4), np.float32)
+    pts = np.zeros((b, n_cams, p, 3), np.float32)
+    mask = np.zeros((b, n_cams, p), bool)
+    for i in range(b):
+        yaw0 = 2.0 * np.arctan2(quat[i, 2], quat[i, 3])
+        for c in range(n_cams):
+            yaw = yaw0 + 0.5 * c
+            cam_pos[i, c] = pos[i] + np.array([0.0, 0.0, 0.4], np.float32)
+            cam_quat[i, c] = np.asarray(j_quat_from_yaw(jnp.float32(yaw)))
+            n = int(rng.integers(p // 2, p))
+            lat = rng.uniform(-0.5, 0.5, n)
+            fwd = 1.2 + rng.normal(0, 0.02, n)
+            pts[i, c, :n, 0] = pos[i, 0] + fwd * np.cos(yaw) - lat * np.sin(yaw)
+            pts[i, c, :n, 1] = pos[i, 1] + fwd * np.sin(yaw) + lat * np.cos(yaw)
+            pts[i, c, :n, 2] = pos[i, 2] + rng.uniform(0.05, 0.9, n)
+            mask[i, c, :n] = rng.uniform(size=n) < 0.9
+    return cam_pos, cam_quat, pts, mask
+
+
+def test_fused_chain_with_depth_and_zones_matches_jax(small):
+    """Three B = 2 ticks with two depth cameras (3-deep rings) and both
+    zone layers, against the jitted JAX tick robot by robot: frames pushed
+    on ticks 0 and 1, a frame-less tick 2 that still clears and marks from
+    the ring, the no-entry toggle off for robot 1 on tick 1. Also the depth
+    layer's grid and ring, exactly."""
+    from dddmr_navigation_tpu.perception.depth_camera import (
+        CameraModel as JCam)
+    from dddmr_navigation_tpu_torch.perception.depth_camera import (
+        CameraModel)
+    cfg, c3, *_ = small
+    md = entry.config3_map(resolution=0.5)
+    ground, map_pts, weights, static_dgraph = md
+    zones = dict(no_entry_zones=NO_ENTRY,
+                 speed_zones=(SPEED_PTS, np.full(len(SPEED_PTS), 0.1,
+                                                 np.float32)))
+    jmap = jf.build_fused_map(cfg, ground, map_pts, node_weight=weights,
+                              static_dgraph=static_dgraph, **zones)
+    fmap = tf.build_fused_map(cfg, ground, map_pts, node_weight=weights,
+                              static_dgraph=static_dgraph, device="cpu",
+                              **zones)
+    np.testing.assert_array_equal(fmap.no_entry_field.numpy(),
+                                  np.asarray(jmap.no_entry_field))
+    assert (fmap.no_entry_field < 1.5).any()
+    jtick = jf.make_fused_tick(cfg, depth_cam=JCam())[0]
+    tick = tf.make_fused_tick(cfg, depth_cam=CameraModel())[0]
+    world = entry.config3_world([EXTRA_BOX])
+    pos, quat, scans, masks, v, w = scan_inputs(cfg, POSES, world)
+    goal = np.tile(c3.goal, (2, 1))
+    g = len(ground)
+    state = tf.init_fused_state(cfg, g, t(pos), depth_cameras=2)
+    jstates = [jf.init_fused_state(cfg, g, robot_xyz=pos[b], depth_cameras=2)
+               for b in range(2)]
+    rng = np.random.default_rng(7)
+    for k in range(3):
+        now = np.float32(0.1 * k)
+        frames = depth_frames(rng, pos, quat) if k < 2 else None
+        enabled = np.array([True, k != 1])
+        state, out = tick(fmap, state, t(scans), t(masks), t(pos), t(quat),
+                          t(c3.offset), t(goal), t(v), t(w),
+                          depth_frames=None if frames is None else tuple(
+                              t(f) for f in frames),
+                          now=t(now), no_entry_enabled=t(enabled))
+        for b in range(2):
+            jf_b = None if frames is None else tuple(f[b] for f in frames)
+            jstates[b], jo = jtick(jmap, jstates[b], scans[b], masks[b],
+                                   pos[b], quat[b], c3.offset, goal[b], v[b],
+                                   w[b], depth_frames=jf_b, now=now,
+                                   no_entry_enabled=bool(enabled[b]))
+            assert int(out.state[b]) == int(jo.state)
+            assert int(out.plan.count[b]) == int(jo.plan.count)
+            assert int(out.wf_iters[b]) == int(jo.wf_iters)
+            np.testing.assert_array_equal(out.obs_mask[b].numpy(),
+                                          np.asarray(jo.obs_mask))
+            np.testing.assert_allclose(out.obs[b].numpy(),
+                                       np.asarray(jo.obs), atol=1e-5)
+            np.testing.assert_allclose(out.composed_dgraph[b].numpy(),
+                                       np.asarray(jo.composed_dgraph),
+                                       atol=1e-5)
+            np.testing.assert_allclose(out.vx[b].numpy(), np.asarray(jo.vx),
+                                       atol=1e-5)
+            np.testing.assert_allclose(out.wz[b].numpy(), np.asarray(jo.wz),
+                                       atol=1e-5)
+            js = jstates[b]
+            np.testing.assert_array_equal(
+                state.depth_marking.grid[b].numpy(),
+                np.asarray(js.depth_marking.grid))
+            np.testing.assert_allclose(state.depth_marking.dgraph[b].numpy(),
+                                       np.asarray(js.depth_marking.dgraph),
+                                       atol=1e-5)
+            for f in ("stamp", "head", "mask"):
+                np.testing.assert_array_equal(
+                    getattr(state.depth_buffer, f)[b].numpy(),
+                    np.asarray(getattr(js.depth_buffer, f)), f)
+    assert int(state.depth_marking.grid.sum()) > 0
+    # robot 1 stands in the 0.1 m/s zone
+    assert abs(float(out.vx[1])) <= 0.1 + 1e-6
 
 
 # ---------------------------------------------------------------------------

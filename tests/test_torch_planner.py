@@ -499,6 +499,14 @@ def test_port_never_imports_jax():
             "import dddmr_navigation_tpu_torch.state_estimation.pf\n"
             "import dddmr_navigation_tpu_torch.state_estimation.likelihood\n"
             "import dddmr_navigation_tpu_torch.state_estimation.mcl\n"
+            "import dddmr_navigation_tpu_torch.perception.depth_camera\n"
+            "import dddmr_navigation_tpu_torch.perception.stitcher\n"
+            "import dddmr_navigation_tpu_torch.runtime.watchdog\n"
+            "import dddmr_navigation_tpu_torch.planning.global_.runtime\n"
+            "import dddmr_navigation_tpu_torch.planning.global_.dwa\n"
+            "import dddmr_navigation_tpu_torch.control.plan_manager\n"
+            "import dddmr_navigation_tpu_torch.control.move_base\n"
+            "import dddmr_navigation_tpu_torch.control.session\n"
             "fn, args = dddmr_navigation_tpu_torch.entry.entry('cpu')\n"
             "fn(*args)\n"
             "from dddmr_navigation_tpu_torch import entry as e\n"
@@ -520,6 +528,15 @@ def test_port_never_imports_jax():
             "out, _ = e.run_fleet_full_chain(\n"
             "    c4, st, lambda t: pf.draw_mcl(gen, 2, 8, 'cpu'), 2)\n"
             "assert out['decision'].shape == (2, 2)\n"
+            "sc = e.session_scenario(e.session_config(8, 90, 16, 8, 1, 2, 8),\n"
+            "                        size=(4.0, 3.0), room_half=2.5,\n"
+            "                        start=(-1.5, 0, 0), goal=(1.5, 0, 0),\n"
+            "                        wall=((-0.1, -0.4, 0), (0.1, 0.4, 1)),\n"
+            "                        no_entry=(-0.3, 0.3, 0.6, 1.2),\n"
+            "                        depth_points=32, scan_rings=8,\n"
+            "                        scan_cols=60)\n"
+            "ch = e.run_session_chain(e.make_session(sc, 'cpu'), sc, 2)\n"
+            "assert len(ch.vx) == 2\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
             "             or m == 'dddmr_navigation_tpu'\n"
@@ -543,6 +560,8 @@ def test_entry_points_default_to_cuda():
     from dddmr_navigation_tpu_torch.io import flat_ground_map
     from dddmr_navigation_tpu_torch.perception.static_map import (
         build_map_context)
+    from dddmr_navigation_tpu_torch.planning.global_.runtime import (
+        GlobalPlannerRuntime)
     cfg = entry.headline_config(4, 4, 8, 16, 8, 8, 32)
     c3_cfg = entry.config3_config(3, 3, 8, 32, 16, 8, 64, 128, 16)
     ground = flat_ground_map(2, 2, 0.5)
@@ -556,6 +575,11 @@ def test_entry_points_default_to_cuda():
         "build_map_context": lambda: build_map_context(ground).ground,
         "make_global_plan": lambda: make_global_plan(
             np.zeros((1, 4, 3)), max_len=8).positions,
+        "make_session": lambda: entry.make_session(entry.session_scenario(
+            entry.session_config(8, 90, 16, 8, 1, 2, 8), size=(2.0, 2.0),
+            depth_points=8)).composed_dgraph,
+        "GlobalPlannerRuntime": lambda: GlobalPlannerRuntime(
+            entry.session_config(), ground).ground_dev,
     }
     have_card = torch.cuda.is_available()
     for name, call in calls.items():
