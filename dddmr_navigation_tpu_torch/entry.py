@@ -25,6 +25,14 @@
   through the repo's session demo (``examples/run_navigation_session.py``):
   a 14×8 m floor at 0.2 m, a 2.8 m wall across the route, a no-entry zone
   and a slow zone.
+* :func:`global_localization_scenario` / :func:`make_global_localization`
+  / :func:`run_global_localization` — global localization from an unknown
+  start in the JAX package's box world (``tests/test_state_estimation.py``:
+  a 12×12 m ground grid and two 12 m walls): 2,048 particles over the
+  ground × 16 yaws, shrunk ×0.75 every second tick down to the runtime
+  filter's 32, while the robot circles 0.5 m around (-2.5, 2.5).
+* :func:`run_sharded_fleet_full_chain` — the config-4 fleet through
+  ``parallel.fleet.sharded_fleet_full_tick``, this rank's robots only.
 """
 from __future__ import annotations
 
@@ -827,3 +835,211 @@ def replay_errors(g, out, first: int = 0) -> tuple:
         want[idx] = val
         dc = max(dc, float(np.abs(o["composed"] - want).max()))
     return bad, dv, dw, dc
+
+
+# ---------------------------------------------------------------------------
+# global localization (tests/test_state_estimation.py's box world)
+# ---------------------------------------------------------------------------
+
+GLOBALLOC_CENTER = (-2.5, 2.5, 0.0)     # the truth circles 0.5 m around it
+GLOBALLOC_DT = 0.25
+
+
+def globalloc_world():
+    """Ground plane + two walls (``_synthetic_world`` of the JAX package's
+    state-estimation tests): a 49×49 grid over ±6 m and walls at y = 4 and
+    x = -4, 61×8 points each. Returns (map_pts, ground_pts)."""
+    gx, gy = np.meshgrid(np.linspace(-6, 6, 49), np.linspace(-6, 6, 49))
+    ground = np.stack([gx.ravel(), gy.ravel(), np.zeros(gx.size)], 1)
+    wx = np.linspace(-6, 6, 61)
+    wz = np.linspace(0.2, 1.6, 8)
+    WX, WZ = np.meshgrid(wx, wz)
+    wall1 = np.stack([WX.ravel(), np.full(WX.size, 4.0), WZ.ravel()], 1)
+    wall2 = np.stack([np.full(WX.size, -4.0), WX.ravel(), WZ.ravel()], 1)
+    return np.concatenate([wall1, wall2]).astype(np.float32), \
+        ground.astype(np.float32)
+
+
+def globalloc_scan_features(map_pts, ground_pts, pos, yaw, n_flat=96,
+                            n_sharp=96, radius=5.0, rng=None):
+    """Simulated feature extraction (``_scan_features`` of the same
+    tests): up to ``n_flat`` ground and ``n_sharp`` map points within
+    ``radius`` of ``pos`` in xy, drawn by ``rng``, in the base frame.
+    Returns numpy (flat (n_flat, 3), flat mask, sharp (n_sharp, 3), sharp
+    mask)."""
+    rng = rng or np.random.default_rng(0)
+    c, s = np.cos(yaw), np.sin(yaw)
+    R = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+
+    def take(pts, n):
+        d = np.linalg.norm(pts[:, :2] - pos[None, :2], axis=1)
+        cand = pts[d < radius]
+        idx = rng.choice(len(cand), size=min(n, len(cand)), replace=False)
+        sel = (cand[idx] - pos[None, :]) @ R  # world→base: R^T on the right
+        out = np.zeros((n, 3), np.float32)
+        m = np.zeros((n,), bool)
+        out[:len(sel)] = sel
+        m[:len(sel)] = True
+        return out, m
+
+    flat, flat_m = take(ground_pts, n_flat)
+    sharp, sharp_m = take(map_pts, n_sharp)
+    return flat, flat_m, sharp, sharp_m
+
+
+def globalloc_pose(t: int):
+    """The true pose at tick ``t``: (position (3,) f32, yaw) on the 0.5 m
+    circle around :data:`GLOBALLOC_CENTER`, 0.08 rad a tick."""
+    th = 0.08 * t
+    p = np.asarray(GLOBALLOC_CENTER, np.float32) + np.array(
+        [0.5 * np.cos(th), 0.5 * np.sin(th), 0.0], np.float32)
+    return p, 0.6 + 0.25 * th
+
+
+class GlobalLocScenario(NamedTuple):
+    cfg: MCLConfig
+    map_pts: np.ndarray       # (M, 3)
+    ground_pts: np.ndarray    # (G, 3)
+    num_start: int
+    yaw_samples: int
+    shrink_every: int
+    res: float                # the submap's field resolution
+    ticks: int                # ticks at most
+    n_sharp: int              # sharp feature points a scan
+    radius: float             # the scan's radius
+
+
+def global_localization_scenario(num_start: int = 2048,
+                                 shrink_every: int = 2,
+                                 ticks: int = 80) -> GlobalLocScenario:
+    """The JAX package's global-localization test: its MCL settings (32
+    runtime particles, init spread 0.3/0.3/0.05 m, 0.02/0.02/0.15 rad,
+    expansion resetting live below a 0.6 match ratio), a 0.2 m submap of
+    :func:`globalloc_world`, 2,048 seed particles × a 16-way yaw grid
+    shrunk every second tick, 192 sharp features within 9 m, up to 80
+    ticks. Smaller arguments cut it to a test's size."""
+    cfg = MCLConfig(num_particles=32, init_var_x=0.3, init_var_y=0.3,
+                    init_var_z=0.05, init_var_roll=0.02, init_var_pitch=0.02,
+                    init_var_yaw=0.15, match_ratio_thresh=0.6)
+    map_pts, ground_pts = globalloc_world()
+    return GlobalLocScenario(cfg, map_pts, ground_pts, num_start, 16,
+                             shrink_every, 0.2, ticks, 192, 9.0)
+
+
+def globalloc_inputs(sc: GlobalLocScenario, t: int) -> dict:
+    """Tick ``t``'s (t ≥ 1) inputs as numpy: odometry (the truth, f32)
+    before and now as positions and yaws, and the scan's features drawn
+    with ``default_rng(t)``."""
+    pos_prev, yaw_prev = globalloc_pose(t - 1)
+    pos, yaw = globalloc_pose(t)
+    flat, flat_m, sharp, sharp_m = globalloc_scan_features(
+        sc.map_pts, sc.ground_pts, pos, yaw, n_sharp=sc.n_sharp,
+        radius=sc.radius, rng=np.random.default_rng(t))
+    return dict(odom_prev_pos=pos_prev, odom_prev_yaw=np.float32(yaw_prev),
+                odom_pos=pos, odom_yaw=np.float32(yaw), flat=flat,
+                flat_m=flat_m, sharp=sharp, sharp_m=sharp_m)
+
+
+def make_global_localization(sc: GlobalLocScenario, generator=None,
+                             seed_draws=None, ctx=None, device="cuda"):
+    """The scenario's ``GlobalLocalization`` on ``device``: its submap
+    built here unless ``ctx`` is given, the seed drawn from ``generator``
+    unless ``seed_draws`` gives it."""
+    from dddmr_navigation_tpu_torch.state_estimation.global_localization \
+        import GlobalLocalization
+    if ctx is None:
+        ctx = build_submap_context(sc.map_pts, sc.ground_pts, sc.cfg,
+                                   res=sc.res, device=device)
+    return GlobalLocalization(
+        sc.cfg, ctx, sc.ground_pts, num_start=sc.num_start,
+        yaw_samples=sc.yaw_samples, shrink_every=sc.shrink_every,
+        generator=generator, seed_draws=seed_draws, device=device)
+
+
+class GlobalLocChain(NamedTuple):
+    """Per-tick records of :func:`run_global_localization` (T ticks)."""
+    n: list                   # particles the tick's update ran at
+    fix_cnt: list             # the countdown after the tick
+    fixed: list               # bool after the tick
+    pose_pos: list            # (1, 3) tensors, the estimate
+    pose_quat: list           # (1, 4)
+    states: list              # the MCLState after the tick (keep_states)
+
+
+def run_global_localization(sc: GlobalLocScenario, gl, draws_of=None,
+                            inputs_of=None, forced=None,
+                            keep_states: bool = False) -> GlobalLocChain:
+    """Ticks 1, 2, ... of the scenario through ``gl`` until it is fixed
+    or ``sc.ticks`` - 1 ticks ran. Tick t's update draws from
+    ``draws_of(t)`` (``pf.MCLDraws`` for ``gl.size`` particles) or from
+    ``gl``'s generator; ``inputs_of(t)`` gives its inputs as tensors on
+    the device (odom_prev_pos, odom_prev_quat, odom_pos, odom_quat, flat,
+    flat_m, sharp, sharp_m), made from :func:`globalloc_inputs` when not
+    given; ``forced(t)``, when given, returns an MCLState to put in place
+    before tick t, or None (teacher forcing)."""
+    dev = gl.device
+    dt = torch.tensor(np.float32(GLOBALLOC_DT), device=dev)
+    rec = GlobalLocChain([], [], [], [], [], [])
+    for t in range(1, sc.ticks):
+        if inputs_of is not None:
+            x = inputs_of(t)
+        else:
+            r = globalloc_inputs(sc, t)
+            x = {k: torch.as_tensor(r[k], device=dev)
+                 for k in ("odom_prev_pos", "odom_pos", "flat", "flat_m",
+                           "sharp", "sharp_m")}
+            x["odom_prev_quat"] = quat_from_yaw(torch.as_tensor(
+                r["odom_prev_yaw"], device=dev))
+            x["odom_quat"] = quat_from_yaw(torch.as_tensor(r["odom_yaw"],
+                                                           device=dev))
+        f = forced(t) if forced is not None else None
+        if f is not None:
+            gl.state = f
+        n = gl.size
+        out = gl.step(x["odom_prev_pos"], x["odom_prev_quat"], x["odom_pos"],
+                      x["odom_quat"], dt, x["flat"], x["flat_m"], x["sharp"],
+                      x["sharp_m"], torch.ones(x["sharp"].shape[0],
+                                               device=dev),
+                      draws=draws_of(t) if draws_of is not None else None)
+        for lst, v in zip(rec, (n, gl.fix_cnt, gl.fixed, out.pose_pos,
+                                out.pose_quat,
+                                gl.state if keep_states else None)):
+            lst.append(v)
+        if gl.fixed:
+            break
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# the config-4 fleet sharded over the ranks of torch.distributed
+# ---------------------------------------------------------------------------
+
+def run_sharded_fleet_full_chain(c4: Config4, state, draws_of, ticks: int,
+                                 mesh, t0: int = 0, inputs_of=None):
+    """``ticks`` chained ticks of ``parallel.fleet.sharded_fleet_full_tick``
+    from tick ``t0`` over this rank's block of the fleet (``state`` and
+    ``draws_of(t)`` are the whole fleet's; each is cut to the block here,
+    as the per-robot inputs are). Returns ({name: (T, B_rank, ...)} for
+    every output of the tick's diag, this rank's final state, [found count
+    () tensor] per tick)."""
+    from dddmr_navigation_tpu_torch.parallel.fleet import (
+        shard_fleet_arrays, sharded_fleet_full_tick)
+    spec, ri, params = c4.specs
+    tick = sharded_fleet_full_tick(c4.cfg, c4.mb, spec, ri, params, mesh,
+                                   mcl_cfg=c4.mcl, localize=True)
+    b = state.pos.shape[0]
+    state, scans, masks, goals = shard_fleet_arrays(
+        mesh, (state, c4.scans, c4.masks, c4.goals))
+    outs, found = {}, []
+    for t in range(t0, t0 + ticks):
+        x = inputs_of(t) if inputs_of else config4_tick_inputs(c4, t, b)
+        drift, drift_yaw, draws = shard_fleet_arrays(
+            mesh, (x["odom_drift_pos"], x["odom_drift_yaw"], draws_of(t)))
+        state, diag, n_found = tick(
+            c4.fmap, c4.submap, c4.walls, c4.ground, state, scans, masks,
+            c4.offset, goals, x["now"], x["dt"], drift, drift_yaw,
+            mcl_draws=draws, feature_keys_=c4.keys)
+        for k, v in diag.items():
+            outs.setdefault(k, []).append(v)
+        found.append(n_found)
+    return {k: torch.stack(v) for k, v in outs.items()}, state, found

@@ -13,7 +13,9 @@ recovery and MCL states included; the JAX filter's random key is dropped,
 since the port takes its draws as arguments). :data:`DRAW_KEYS`,
 :func:`mcl_fields`, :func:`port_mcl_state` and :func:`port_draws` read and
 write the MCL states and draws of a golden record (the JAX package's
-filter and its draws, or the port's, as numpy by name).
+filter and its draws, or the port's, as numpy by name);
+:func:`port_seed_draws` and :func:`port_tick_of_one` read a global
+localization's (one robot whose particle count changes tick by tick).
 """
 from __future__ import annotations
 
@@ -172,6 +174,30 @@ def port_draws(draws, device):
     from dddmr_navigation_tpu_torch.state_estimation.pf import MCLDraws
     return MCLDraws(*(torch.as_tensor(draws[k], device=device)
                       for k in DRAW_KEYS))
+
+
+def port_seed_draws(record, device):
+    """The global-localization seed's draws (``node_idx``, ``yaw_idx`` of
+    a record: the ground nodes and yaw cells the JAX package's
+    ``seed_global_state`` drew) as the port's ``SeedDraws``."""
+    from dddmr_navigation_tpu_torch.state_estimation.global_localization \
+        import SeedDraws
+    return SeedDraws(
+        node_idx=torch.as_tensor(np.asarray(record["node_idx"], np.int64),
+                                 device=device),
+        yaw_idx=torch.as_tensor(np.asarray(record["yaw_idx"], np.int64),
+                                device=device))
+
+
+def port_tick_of_one(tick: dict, device):
+    """One tick of a fleet-of-one record (a dict by :data:`DRAW_KEYS` and
+    :func:`mcl_fields` names, as ``pack_ticks``/``tick_of`` give it,
+    whatever the tick's particle count): (the MCLState the tick started
+    from, its ``pf.MCLDraws``), each with the robot axis B = 1."""
+    one = {k: np.asarray(v)[None] for k, v in tick.items()}
+    return (port_mcl_state({k: v[None] for k, v in one.items()
+                            if k.startswith("mcl_")}, 0, device),
+            port_draws(one, device))
 
 
 # ---------------------------------------------------------------------------

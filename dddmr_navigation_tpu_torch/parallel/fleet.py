@@ -1,10 +1,15 @@
-"""A fleet of robots: the local-planner tick, the fused tick, and the
-full-fidelity tick of bench config 4.
+"""A fleet of robots: the local-planner tick, the fused tick, the
+full-fidelity tick of bench config 4, and each of them sharded over the
+ranks of ``torch.distributed``.
 
-Counterpart of ``dddmr_navigation_tpu/parallel/fleet.py`` without its
-sharded variants. The JAX package vmaps single-robot ticks over the fleet;
-here each tick is written with a leading robot axis, so one fleet tick
-launches each kernel once per call site.
+Counterpart of ``dddmr_navigation_tpu/parallel/fleet.py``. The JAX package
+vmaps single-robot ticks over the fleet; here each tick is written with a
+leading robot axis, so one fleet tick launches each kernel once per call
+site. The sharded ticks (``shard_map`` over a 1-D mesh in the JAX
+package) run on each rank over its own contiguous block of robots, with
+the map, the submap context and the feature clouds replicated; each
+``psum`` of a fleet-health scalar becomes one ``all_reduce`` over the
+mesh's process group (NCCL on the card, gloo on the CPU).
 """
 from __future__ import annotations
 
@@ -12,6 +17,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dddmr_navigation_tpu_torch.config import LocalPlannerConfig
 from dddmr_navigation_tpu_torch.control.fsm import (
@@ -29,7 +35,7 @@ from dddmr_navigation_tpu_torch.planning.global_.planner import (
 from dddmr_navigation_tpu_torch.planning.global_.wavefront import (
     fleet_wavefront_distances, fleet_wavefront_distances_turning)
 from dddmr_navigation_tpu_torch.planning.local.planner import (
-    GlobalPlan, VelocityCommand, compute_velocity_command,
+    GlobalPlan, PlannerState, VelocityCommand, compute_velocity_command,
     goal_heading_deviation, goal_reached, initial_heading_deviation)
 from dddmr_navigation_tpu_torch.rounding import fma_dot, fma_norm
 from dddmr_navigation_tpu_torch.state_estimation.mcl import (
@@ -408,3 +414,146 @@ def fleet_full_tick(nav_cfg, mb_cfg, spec, ri_spec, params, fmap, state,
     fused2, out = fleet_simple_local(nav_cfg, state, loc, pre, res, plans,
                                      scan_masks, wf_stall)
     return fleet_decide(nav_cfg, mb_cfg, state, loc, fused2, out, now, dt)
+
+
+# ---------------------------------------------------------------------------
+# sharded fleets: robots split over the ranks of torch.distributed
+# ---------------------------------------------------------------------------
+
+_BACKEND = {"cuda": "nccl", "cpu": "gloo"}
+
+
+def make_fleet_mesh(axis: str = "scenarios", device="cuda"):
+    """A 1-D ``DeviceMesh`` named ``axis`` over every rank of the default
+    process group, which must already be initialized with the backend of
+    ``device`` (NCCL for the card, gloo for the CPU; neither stands in
+    for the other)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    device_type = torch.device(device).type
+    if not dist.is_initialized():
+        raise RuntimeError("make_fleet_mesh needs an initialized process "
+                           "group")
+    backend = dist.get_backend()
+    if backend != _BACKEND[device_type]:
+        raise RuntimeError(f"a {device_type} fleet mesh needs the "
+                           f"{_BACKEND[device_type]} backend, not {backend}")
+    return init_device_mesh(device_type, (dist.get_world_size(),),
+                            mesh_dim_names=(axis,))
+
+
+def rank_block(mesh) -> tuple[int, int]:
+    """(this rank's block, number of blocks) of a robot batch split over
+    every axis of ``mesh`` flattened in order (``P(axes)``)."""
+    coord = mesh.get_coordinate()
+    index = 0
+    for c, size in zip(coord, mesh.mesh.shape):
+        index = index * size + c
+    return index, mesh.mesh.numel()
+
+
+def _tree_map(fn, tree):
+    """``fn`` on every tensor of nested NamedTuples, tuples, lists and
+    dicts; other leaves (None, Python scalars) kept."""
+    if torch.is_tensor(tree):
+        return fn(tree)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_map(fn, x) for x in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, x) for x in tree)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return tree
+
+
+def shard_fleet_arrays(mesh, tree, axis: str = "scenarios"):
+    """This rank's contiguous block of axis 0 of every tensor in ``tree``
+    (robot-batched NamedTuples, tuples, lists, dicts), as ``P(axis)``
+    places it. Axis 0 must divide evenly over the mesh."""
+    index, count = rank_block(mesh)
+
+    def block(x):
+        if x.dim() == 0 or x.shape[0] % count:
+            raise ValueError(f"axis 0 of a {tuple(x.shape)} tensor does not "
+                             f"split over {count} ranks")
+        n = x.shape[0] // count
+        return x[index * n:(index + 1) * n]
+    return _tree_map(block, tree)
+
+
+def _psum(x, group):
+    """The sum of ``x`` over the ranks of ``group`` (one all_reduce)."""
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x
+
+
+def _found_count(codes):
+    return (codes == int(PlannerState.TRAJECTORY_FOUND)).to(
+        torch.float32).sum()
+
+
+def sharded_fleet_tick(cfg: LocalPlannerConfig, mesh,
+                       axis: str = "scenarios"):
+    """The fleet tick over this rank's robots, and a fleet-health scalar
+    replicated on every rank: the mean best cost of the robots that found
+    a trajectory, over the whole fleet (two all_reduces: the sum and the
+    count). The returned callable takes this rank's (plans, state,
+    obstacles, obs_valid) and returns (vx, wz, state codes, best costs,
+    mean cost)."""
+    group = mesh.get_group(axis)
+
+    def tick(plans, state, obstacles, obs_valid):
+        cmd = fleet_tick(cfg, plans, state, obstacles, obs_valid)
+        ok = cmd.best_cost >= 0
+        total = _psum(torch.where(ok, cmd.best_cost, 0.0).sum(), group)
+        cnt = _psum(ok.to(torch.float32).sum(), group)
+        return (cmd.vx, cmd.wz, cmd.state, cmd.best_cost,
+                total / torch.clamp(cnt, min=1.0))
+    return tick
+
+
+def sharded_fused_fleet_tick(nav_cfg, spec, ri_spec, params, mesh,
+                             axis: str = "scenarios"):
+    """The fused fleet tick over this rank's robots on the replicated map,
+    and the count of robots at TRAJECTORY_FOUND over the whole fleet (one
+    all_reduce). The returned callable takes (fmap, states, scans,
+    scan_masks, positions, quats, sensor_offset, goals, v_now, w_now),
+    the per-robot ones this rank's, and returns (states, vx, wz, state
+    codes, plan_ok, found)."""
+    group = mesh.get_group(axis)
+
+    def tick(fmap, states, scans, scan_masks, positions, quats,
+             sensor_offset, goals, v_now, w_now):
+        s2, vx, wz, codes, ok = fused_fleet_tick(
+            nav_cfg, spec, ri_spec, params, fmap, states, scans, scan_masks,
+            positions, quats, sensor_offset, goals, v_now, w_now)
+        return s2, vx, wz, codes, ok, _psum(_found_count(codes), group)
+    return tick
+
+
+def sharded_fleet_full_tick(nav_cfg, mb_cfg, spec, ri_spec, params, mesh,
+                            axis: str = "scenarios", mcl_cfg=None,
+                            localize: bool = False):
+    """The full-fidelity fleet tick over this rank's robots, with the map,
+    the submap context and the feature clouds replicated, and the count
+    of robots whose simple generator holds TRAJECTORY_FOUND over the
+    whole fleet (one all_reduce). The relaxation of stage B runs over
+    this rank's robots, as ``shard_map`` runs it on each shard. The
+    returned callable takes (fmap, submap_ctx, feat_map, feat_ground,
+    state, scans, scan_masks, sensor_offset, goals, now, dt, drift_pos,
+    drift_yaw, mcl_draws=None, feature_keys_=None), the per-robot ones
+    (state, scans, masks, goals, drifts, draws) this rank's, and returns
+    (state, diag, found)."""
+    group = mesh.get_group(axis)
+
+    def tick(fmap, submap_ctx, feat_map, feat_ground, state, scans,
+             scan_masks, sensor_offset, goals, now, dt, drift_pos,
+             drift_yaw, mcl_draws=None, feature_keys_=None):
+        s2, diag = fleet_full_tick(
+            nav_cfg, mb_cfg, spec, ri_spec, params, fmap, state, scans,
+            scan_masks, sensor_offset, goals, now, dt,
+            mcl_cfg=mcl_cfg if localize else None, submap_ctx=submap_ctx,
+            odom_drift_pos=drift_pos, odom_drift_yaw=drift_yaw,
+            feature_map_pts=feat_map, feature_ground_pts=feat_ground,
+            mcl_draws=mcl_draws, feature_keys_=feature_keys_)
+        return s2, diag, _psum(_found_count(diag["ps_simple"]), group)
+    return tick

@@ -1,2 +1,4 @@
-"""MCL for a fleet (counterpart of ``dddmr_navigation_tpu/state_estimation``
-for the particle filter, the lidar likelihood and the update tick)."""
+"""State estimation (counterpart of ``dddmr_navigation_tpu/state_estimation``):
+MCL for a fleet (the particle filter, the lidar likelihood and the update
+tick), pose-graph submaps, feature-weight preprocessing, 3D odometry and
+global localization."""

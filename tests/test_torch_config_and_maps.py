@@ -182,3 +182,32 @@ def test_watchdog_matches():
     assert a.keys() == b.keys()
     assert (a["ticks"], a["deadline_misses"]) == (b["ticks"],
                                                   b["deadline_misses"])
+
+
+@pytest.mark.parametrize("encoding", ["ascii", "binary", "binary_compressed"])
+def test_pcd_matches(tmp_path, encoding):
+    kw = dict(binary=encoding != "ascii",
+              compressed=encoding == "binary_compressed")
+    """io/pcd.py: each package reads what either writes, in each encoding,
+    to the same arrays; the LZF codec gives the same bytes both ways."""
+    from dddmr_navigation_tpu.io import pcd as jpcd
+    from dddmr_navigation_tpu_torch.io import pcd as tpcd
+    rng = np.random.default_rng(7)
+    pts = rng.normal(0, 3, (500, 4)).astype(np.float32)
+    pts[::7] = np.round(pts[::7], 1)          # runs for the LZF back-refs
+    fields = ("x", "y", "z", "intensity")
+    for w, name in ((jpcd, "j"), (tpcd, "t")):
+        w.write_pcd(str(tmp_path / f"{name}.pcd"), pts, fields=fields, **kw)
+    assert ((tmp_path / "j.pcd").read_bytes()
+            == (tmp_path / "t.pcd").read_bytes())
+    for name in ("j", "t"):
+        a = tpcd.read_pcd(str(tmp_path / f"{name}.pcd"))
+        np.testing.assert_array_equal(a, jpcd.read_pcd(
+            str(tmp_path / f"{name}.pcd")))
+        # ascii stores "%.6f": half its last digit, and the f32 read back
+        np.testing.assert_allclose(a, pts, rtol=0, atol=1e-6
+                                   if encoding == "ascii" else 0)
+    raw = pts.tobytes()
+    comp = tpcd.lzf_compress(raw)
+    assert comp == jpcd.lzf_compress(raw)
+    assert tpcd.lzf_decompress(comp, len(raw)) == raw

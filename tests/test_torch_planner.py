@@ -507,6 +507,14 @@ def test_port_never_imports_jax():
             "import dddmr_navigation_tpu_torch.control.plan_manager\n"
             "import dddmr_navigation_tpu_torch.control.move_base\n"
             "import dddmr_navigation_tpu_torch.control.session\n"
+            "import dddmr_navigation_tpu_torch.io.pcd\n"
+            "import dddmr_navigation_tpu_torch.state_estimation.submaps\n"
+            "import dddmr_navigation_tpu_torch.state_estimation.odom3d\n"
+            "import dddmr_navigation_tpu_torch.state_estimation"
+            ".feature_weights\n"
+            "import dddmr_navigation_tpu_torch.state_estimation"
+            ".global_localization\n"
+            "import dddmr_navigation_tpu_torch.parallel.multihost\n"
             "fn, args = dddmr_navigation_tpu_torch.entry.entry('cpu')\n"
             "fn(*args)\n"
             "from dddmr_navigation_tpu_torch import entry as e\n"
@@ -537,6 +545,10 @@ def test_port_never_imports_jax():
             "                        scan_cols=60)\n"
             "ch = e.run_session_chain(e.make_session(sc, 'cpu'), sc, 2)\n"
             "assert len(ch.vx) == 2\n"
+            "gsc = e.global_localization_scenario(64, 1, 3)\n"
+            "gl = e.make_global_localization(\n"
+            "    gsc, torch.Generator().manual_seed(0), device='cpu')\n"
+            "assert len(e.run_global_localization(gsc, gl).n) == 2\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
             "             or m == 'dddmr_navigation_tpu'\n"
@@ -562,6 +574,11 @@ def test_entry_points_default_to_cuda():
         build_map_context)
     from dddmr_navigation_tpu_torch.planning.global_.runtime import (
         GlobalPlannerRuntime)
+    from dddmr_navigation_tpu_torch.config import MCLConfig
+    from dddmr_navigation_tpu_torch.state_estimation.odom3d import (
+        init_odom3d)
+    from dddmr_navigation_tpu_torch.state_estimation.submaps import (
+        PoseGraph, SubmapManager)
     cfg = entry.headline_config(4, 4, 8, 16, 8, 8, 32)
     c3_cfg = entry.config3_config(3, 3, 8, 32, 16, 8, 64, 128, 16)
     ground = flat_ground_map(2, 2, 0.5)
@@ -580,6 +597,13 @@ def test_entry_points_default_to_cuda():
             depth_points=8)).composed_dgraph,
         "GlobalPlannerRuntime": lambda: GlobalPlannerRuntime(
             entry.session_config(), ground).ground_dev,
+        "init_odom3d": lambda: init_odom3d().pos,
+        "make_global_localization": lambda: entry.make_global_localization(
+            entry.global_localization_scenario(64, 1, 2),
+            torch.Generator()).state.particles.pos,
+        "SubmapManager": lambda: SubmapManager(
+            PoseGraph(np.zeros((1, 8), np.float32), [ground], [ground]),
+            MCLConfig()).initialize([0.0, 0.0, 0.0]).ground_normal,
     }
     have_card = torch.cuda.is_available()
     for name, call in calls.items():
