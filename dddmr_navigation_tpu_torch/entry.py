@@ -33,12 +33,19 @@
   filter's 32, while the robot circles 0.5 m around (-2.5, 2.5).
 * :func:`run_sharded_fleet_full_chain` — the config-4 fleet through
   ``parallel.fleet.sharded_fleet_full_tick``, this rank's robots only.
+* :func:`slam_scenario` / :func:`make_mapping_session` /
+  :func:`run_mapping_chain` / :func:`replay_mapping` — one mapping run
+  (``slam.pipeline.MappingSession``) at ``SlamConfig()``'s full width
+  through ``bench.py::bench_slam``'s world: a closed 3 m circle of 56
+  scans that closes loops on its second pass, and the teacher-forced
+  replay of the JAX package's recorded run.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -46,7 +53,7 @@ import torch
 from dddmr_navigation_tpu_torch.config import (
     DDSimpleGeneratorConfig, GlobalPlannerConfig, LocalPlannerConfig,
     MCLConfig, MoveBaseConfig, NavigationConfig, PerceptionConfig,
-    SpinningLidarConfig)
+    SlamConfig, SpinningLidarConfig)
 from dddmr_navigation_tpu_torch.io.maps import (
     box_obstacle, flat_ground_map, multi_level_map)
 from dddmr_navigation_tpu_torch.control.fused import (
@@ -1043,3 +1050,217 @@ def run_sharded_fleet_full_chain(c4: Config4, state, draws_of, ticks: int,
             outs.setdefault(k, []).append(v)
         found.append(n_found)
     return {k: torch.stack(v) for k, v in outs.items()}, state, found
+
+
+# ---------------------------------------------------------------------------
+# SLAM: one mapping run at full width (bench.py::bench_slam's world)
+# ---------------------------------------------------------------------------
+
+SLAM_CENTER = (-0.5, -2.0)    # the trajectory circles it counterclockwise
+SLAM_RADIUS = 3.0
+SLAM_STEP = 0.4               # metres a scan (4 m/s at the 10 Hz sweep)
+SLAM_SCANS = 56               # 1.15 laps: back past the start
+SLAM_HEIGHT = 0.8             # the lidar above the floor
+
+
+def slam_world():
+    """``bench.py::bench_slam``'s world: a 16 m room with boxes at
+    [3.0, -1.5, 0]–[3.6, 0.5, 1.8] and [-2.0, 2.0, 0]–[-1.2, 2.6, 1.4]."""
+    return BoxWorld.room(half=8.0) \
+        .add_box([3.0, -1.5, 0], [3.6, 0.5, 1.8]) \
+        .add_box([-2.0, 2.0, 0], [-1.2, 2.6, 1.4])
+
+
+def slam_pose(t: int):
+    """The true lidar pose at scan ``t``: (position (3,) f32, yaw) on the
+    :data:`SLAM_RADIUS` circle around :data:`SLAM_CENTER`, starting at its
+    bottom facing +x."""
+    yaw = t * SLAM_STEP / SLAM_RADIUS
+    return np.array([SLAM_CENTER[0] + SLAM_RADIUS * np.sin(yaw),
+                     SLAM_CENTER[1] - SLAM_RADIUS * np.cos(yaw),
+                     SLAM_HEIGHT], np.float32), yaw
+
+
+class SlamScenario(NamedTuple):
+    cfg: SlamConfig
+    world: BoxWorld
+    scans: int                # scans in the run
+    true_pos: np.ndarray      # (scans, 3) lidar positions in the world
+    true_yaw: np.ndarray      # (scans,)
+
+
+def slam_scenario(cfg: SlamConfig = None, scans: int = SLAM_SCANS
+                  ) -> SlamScenario:
+    """A closed loop through :func:`slam_world` at ``SlamConfig()`` (a
+    16×1000 range image, 64/512/256/2,048 features, 12 + 6 Gauss-Newton
+    iterations, submap pads of 2,048 and 4,096, a 256-keyframe and
+    512-edge graph): 1.15 laps of a 3 m circle at 0.4 m a scan, which the
+    JAX package's session maps into 20 keyframes and closes four loops
+    (keyframes 16-19 against 0-3), ending 0.23 m from the truth."""
+    cfg = cfg or SlamConfig()
+    poses = [slam_pose(t) for t in range(scans)]
+    return SlamScenario(cfg, slam_world(), scans,
+                        np.stack([p for p, _ in poses]),
+                        np.asarray([y for _, y in poses]))
+
+
+def slam_scan(sc: SlamScenario, t: int):
+    """Scan ``t`` from ``lidar_sim``: (points (N, 3) f32, mask (N,))."""
+    return simulate_scan(sc.world, sc.true_pos[t], float(sc.true_yaw[t]),
+                         n_rings=sc.cfg.num_vertical_scans,
+                         n_cols=sc.cfg.num_horizontal_scans)
+
+
+def slam_truth(sc: SlamScenario, t: int):
+    """Scan ``t``'s true pose in the map frame (the first scan's lidar
+    frame): (position (3,), yaw)."""
+    y0 = float(sc.true_yaw[0])
+    c, s = np.cos(-y0), np.sin(-y0)
+    d = sc.true_pos[t] - sc.true_pos[0]
+    return np.array([c * d[0] - s * d[1], s * d[0] + c * d[1], d[2]],
+                    np.float32), float(sc.true_yaw[t]) - y0
+
+
+def make_mapping_session(sc: SlamScenario = None, device="cuda"):
+    """A ``slam.pipeline.MappingSession`` with the scenario's config (the
+    canonical one without a scenario) on ``device``."""
+    from dddmr_navigation_tpu_torch.slam.pipeline import MappingSession
+    cfg = sc.cfg if sc is not None else SlamConfig()
+    return MappingSession(cfg=cfg, device=device)
+
+
+class MappingChain(NamedTuple):
+    """Per-scan records of :func:`run_mapping_chain`."""
+    pos: np.ndarray           # (T, 3) the session's pose after each scan
+    quat: np.ndarray          # (T, 4)
+    keyframes: list           # keyframe count after each scan
+    edges: list               # edge count after each scan
+    loop_closures: list       # the session's (i, j, fitness) at the end
+    scan_s: list              # seconds a scan
+    stage_s: dict             # stage name → seconds, one per run of it
+
+
+def run_mapping_chain(sess, sc: SlamScenario, scans_of=None,
+                      clock=time.perf_counter,
+                      elapsed=lambda a, b: b - a) -> MappingChain:
+    """The closed loop: the scenario's scans through ``sess.process_scan``
+    (``scans_of(t)`` gives scan t as (points, mask), :func:`slam_scan`
+    when not given). Each scan, and each stage from its start to the
+    next's (the last to the scan's end), is timed by ``clock()`` marks
+    (host time by default; CUDA events on the card), read with
+    ``elapsed(a, b)`` → seconds once the run is over."""
+    pos, quat, kfs, edges, marks = [], [], [], [], []
+    stage = []
+    sess.stage = lambda name: stage.append((name, clock()))
+    try:
+        for t in range(sc.scans):
+            pts, mask = scans_of(t) if scans_of else slam_scan(sc, t)
+            stage.clear()
+            start = clock()
+            p, q = sess.process_scan(pts, mask)
+            marks.append((start, list(stage), clock()))
+            pos.append(np.array(p, np.float32))
+            quat.append(np.array(q, np.float32))
+            kfs.append(sess.n_keyframes)
+            edges.append(sess.n_edges)
+    finally:
+        sess.stage = None
+    scan_s, stage_s = [], {}
+    for start, st, end in marks:
+        scan_s.append(elapsed(start, end))
+        for (name, a), (_, b) in zip(st, st[1:] + [(None, end)]):
+            stage_s.setdefault(name, []).append(elapsed(a, b))
+    return MappingChain(np.stack(pos), np.stack(quat), kfs, edges,
+                        list(sess.loop_closures), scan_s, stage_s)
+
+
+def replay_mapping(sc: SlamScenario, g, scans, device="cuda",
+                   scans_of=None) -> dict:
+    """The recorded JAX mapping run ``g`` (``testdata/slam_golden.npz``)
+    replayed teacher-forced at each scan of ``scans``: the port's session
+    is put in the state the JAX session started that scan from
+    (``interop.port_mapping_state``, the submap rebuilt from it) and
+    processes the scan. Returns {scan: the session after it}; its
+    ``last_scan`` holds the stages' outputs."""
+    from dddmr_navigation_tpu_torch.interop import (
+        port_mapping_state, tick_of)
+    keyframes = {k: g[k] for k in g.keys() if k.startswith("kf_")}
+    out = {}
+    for t in scans:
+        state = tick_of(g, t, prefix="state_")
+        sess = port_mapping_state(state, sc.cfg, device, keyframes=keyframes)
+        pts, mask = scans_of(t) if scans_of else slam_scan(sc, t)
+        sess.process_scan(pts, mask)
+        out[t] = sess
+    return out
+
+
+SLAM_LOC_TICKS = 10
+SLAM_LOC_POINTS = 512         # feature points a class, padded
+SLAM_LOC_DT = 0.25
+
+
+def slam_localization_features(sc: SlamScenario, t: int,
+                               n: int = SLAM_LOC_POINTS):
+    """Scan ``t``'s features for MCL as ``examples/run_slam_mcl.py``
+    splits them: points below -0.4 m in the lidar frame are flat, the
+    rest sharp, the first ``n`` of each in scan order. Returns numpy
+    (flat (n, 3), flat mask, sharp (n, 3), sharp mask)."""
+    pts, mask = slam_scan(sc, t)
+    low = pts[:, 2] < -0.4
+
+    def pad(m):
+        sel = np.nonzero(m)[0][:n]
+        out = np.zeros((n, 3), np.float32)
+        out[:len(sel)] = pts[sel]
+        keep = np.zeros((n,), bool)
+        keep[:len(sel)] = True
+        return out, keep
+    return (*pad(mask & low), *pad(mask & ~low))
+
+
+def run_slam_localization(sc: SlamScenario, graph, generators,
+                          ticks: int = SLAM_LOC_TICKS, device="cuda",
+                          cfg: MCLConfig = None):
+    """Localize on a saved map (``submaps.PoseGraph``) along the mapped
+    route, the localization pass of ``examples/run_slam_mcl.py``: a
+    ``SubmapManager`` over the graph (built once, shared by the passes),
+    and for each ``torch.Generator`` of ``generators`` (on ``device``) a
+    pass of one filter (B = 1, 48 particles) started at the true start
+    (the map origin), odometry equal to the truth, ticks 1..``ticks`` at
+    scans 1..``ticks``, its draws from that generator. Returns per pass
+    [(tick, xy error m, estimate (3,) numpy)]."""
+    from dddmr_navigation_tpu_torch.state_estimation import mcl, pf
+    from dddmr_navigation_tpu_torch.state_estimation.submaps import (
+        SubmapManager)
+    cfg = cfg or MCLConfig(num_particles=48)
+    mgr = SubmapManager(graph=graph, cfg=cfg, device=device)
+    mgr.initialize([0.0, 0.0, 0.0])
+
+    def pose(t):
+        p, yaw = slam_truth(sc, t)
+        return (torch.tensor(p[None], device=device),
+                quat_from_yaw(torch.tensor([yaw], dtype=torch.float32,
+                                           device=device)))
+    inputs = [(pose(t - 1), pose(t), [
+        torch.tensor(x, device=device)[None]
+        for x in slam_localization_features(sc, t)])
+        for t in range(1, ticks + 1)]
+    dt = torch.tensor(np.float32(SLAM_LOC_DT), device=device)
+    weight = torch.ones((1, SLAM_LOC_POINTS), device=device)
+    passes = []
+    for gen in generators:
+        p0, q0 = pose(0)
+        state = mcl.init_mcl(cfg, p0, q0, *mcl.init_draws(gen, cfg, 1,
+                                                           device))
+        out = []
+        for t, ((pp, pq), (cp, cq), feats) in enumerate(inputs, 1):
+            ctx = mgr.current(cp[0].cpu().numpy())
+            state, res = mcl.mcl_update(
+                cfg, ctx, state, pp, pq, cp, cq, dt, *feats, weight,
+                pf.draw_mcl(gen, 1, cfg.num_particles, device))
+            est = res.pose_pos[0].cpu().numpy()
+            out.append((t, float(np.linalg.norm(
+                est[:2] - cp[0, :2].cpu().numpy())), est))
+        passes.append(out)
+    return passes

@@ -1,16 +1,21 @@
-"""Quaternion math on tensors, the counterpart of
-``dddmr_navigation_tpu/geometry/se3.py`` for the functions the ported ticks
-use.
+"""Quaternion and SE(3) math on tensors, the counterpart of
+``dddmr_navigation_tpu/geometry/se3.py``.
 
-Quaternions are ``(x, y, z, w)`` (tf2 layout). Every function broadcasts over
-leading batch dimensions and keeps the operation order of the JAX version, so
-that the two agree to the last few ulps.
+Quaternions are ``(x, y, z, w)`` (tf2 layout); poses are ``(translation[3],
+quaternion[4])`` tuples. Every function broadcasts over leading batch
+dimensions and keeps the operation order of the JAX version, so that the two
+agree to the last few ulps. The ``*_fma`` variants round as the JAX
+package's jitted versions do on the CPU, where a threshold follows.
 """
 from __future__ import annotations
 
 import torch
 
 from dddmr_navigation_tpu_torch.rounding import fma, fma_norm
+
+
+def quat_identity(dtype=torch.float32, device="cuda"):
+    return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device)
 
 
 def quat_normalize(q):
@@ -47,11 +52,26 @@ def quat_rotate(q, v):
     return v + qw * t + torch.linalg.cross(qv, t, dim=-1)
 
 
+def quat_inverse_rotate(q, v):
+    return quat_rotate(quat_conjugate(q), v)
+
+
 def quat_from_axis_angle(axis, angle):
     """tf2::Quaternion(axis, angle); the axis need not be normalized."""
     axis = axis / torch.linalg.norm(axis, dim=-1, keepdim=True)
     half = angle[..., None] * 0.5
     return torch.cat([axis * torch.sin(half), torch.cos(half)], dim=-1)
+
+
+def quat_exp(w):
+    """Rotation-vector exponential → quaternion, smooth at ‖w‖ = 0: the
+    series branch keeps the derivative exact there, where the Gauss-Newton
+    solvers linearize (``torch.func.jacfwd`` at ξ = 0)."""
+    ang2 = torch.sum(w * w, dim=-1, keepdim=True)
+    ang = torch.sqrt(ang2 + 1e-16)
+    half = 0.5 * ang
+    k = torch.where(ang2 > 1e-12, torch.sin(half) / ang, 0.5 - ang2 / 48.0)
+    return torch.cat([w * k, torch.cos(half)], dim=-1)
 
 
 def quat_from_rpy(roll, pitch, yaw):
@@ -89,6 +109,84 @@ def rpy_from_quat(q):
     pitch = torch.asin(torch.clamp(2.0 * (w * y - z * x), -1.0, 1.0))
     yaw = torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
     return roll, pitch, yaw
+
+
+def quat_to_matrix(q):
+    """3×3 rotation matrix from quaternion, batched."""
+    x, y, z, w = q.unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    m = torch.stack(
+        [
+            1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+            2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+            2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+        ],
+        dim=-1,
+    )
+    return m.reshape(m.shape[:-1] + (3, 3))
+
+
+def matrix_to_quat(m):
+    """Quaternion (x,y,z,w) from rotation matrix: the four Shepperd
+    candidates, the numerically best selected without a branch."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def cand(s, parts):
+        r = torch.sqrt(torch.clamp(s, min=1e-12)) * 0.5
+        return torch.stack(parts(r), -1) / (4.0 * r[..., None])
+    q0 = cand(1.0 + tr, lambda r: [m21 - m12, m02 - m20, m10 - m01,
+                                   4.0 * r * r])
+    q1 = cand(1.0 + m00 - m11 - m22, lambda r: [4.0 * r * r, m01 + m10,
+                                                m02 + m20, m21 - m12])
+    q2 = cand(1.0 - m00 + m11 - m22, lambda r: [m01 + m10, 4.0 * r * r,
+                                                m12 + m21, m02 - m20])
+    q3 = cand(1.0 - m00 - m11 + m22, lambda r: [m02 + m20, m12 + m21,
+                                                4.0 * r * r, m10 - m01])
+    cond0 = tr > 0.0
+    cond1 = (m00 > m11) & (m00 > m22)
+    cond2 = m11 > m22
+    q = torch.where(
+        cond0[..., None], q0,
+        torch.where(cond1[..., None], q1,
+                    torch.where(cond2[..., None], q2, q3)))
+    return quat_normalize(q)
+
+
+# ---------------------------------------------------------------------------
+# SE(3) poses: (t[...,3], q[...,4])
+# ---------------------------------------------------------------------------
+
+def se3_identity(dtype=torch.float32, device="cuda"):
+    return (torch.zeros((3,), dtype=dtype, device=device),
+            quat_identity(dtype, device))
+
+
+def se3_from_xyzq(x, y, z, q):
+    return torch.stack([x, y, z], dim=-1), q
+
+
+def se3_compose(pose_a, pose_b):
+    """pose_a ∘ pose_b (apply b in a's frame), like Eigen Affine a*b."""
+    ta, qa = pose_a
+    tb, qb = pose_b
+    return ta + quat_rotate(qa, tb), quat_normalize(quat_multiply(qa, qb))
+
+
+def se3_inverse(pose):
+    t, q = pose
+    qi = quat_conjugate(q)
+    return -quat_rotate(qi, t), qi
+
+
+def se3_apply(pose, pts):
+    """Transform points (..., 3) by pose; broadcasts over points."""
+    t, q = pose
+    return quat_rotate(q[..., None, :], pts) + t[..., None, :]
 
 
 def normalize_angle(a):
@@ -159,7 +257,9 @@ def quat_multiply_fma(q1, q2):
 
 
 def _cross_fma(a, b):
-    a0, a1, a2 = a.unbind(-1)
-    b0, b1, b2 = b.unbind(-1)
-    return torch.stack([fma(a1, b2, -(a2 * b1)), fma(a2, b0, -(a0 * b2)),
-                        fma(a0, b1, -(a1 * b0))], dim=-1)
+    """a × b, each component fma(a1, b2, -(a2·b1)) (and its cyclic
+    shifts), the three computed at once: rolling the last axis by -1 gives
+    (a1, a2, a0), by 1 gives (a2, a0, a1)."""
+    a, b = torch.broadcast_tensors(a, b)
+    return fma(torch.roll(a, -1, -1), torch.roll(b, 1, -1),
+               -(torch.roll(a, 1, -1) * torch.roll(b, -1, -1)))

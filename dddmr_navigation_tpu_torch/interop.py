@@ -16,6 +16,11 @@ write the MCL states and draws of a golden record (the JAX package's
 filter and its draws, or the port's, as numpy by name);
 :func:`port_seed_draws` and :func:`port_tick_of_one` read a global
 localization's (one robot whose particle count changes tick by tick).
+:func:`feature_set_fields`, :func:`pose_graph_fields`,
+:func:`keyframe_fields` and :func:`mapping_fields` read a SLAM frontend's
+features, a padded pose graph and a mapping session's state as numpy;
+:func:`port_feature_set`, :func:`port_pose_graph` and
+:func:`port_mapping_state` build the port's from them.
 """
 from __future__ import annotations
 
@@ -431,3 +436,128 @@ def tick_of(packed, t: int, prefix: str = "", keys=None) -> dict:
         else:
             out[k] = packed[key][t]
     return out
+
+
+# ---------------------------------------------------------------------------
+# the mapping session's state (slam.pipeline.MappingSession)
+# ---------------------------------------------------------------------------
+
+_FEATURE_FIELDS = ("sharp", "sharp_mask", "less_sharp", "less_sharp_mask",
+                   "flat", "flat_mask", "less_flat", "less_flat_mask",
+                   "less_sharp_ring", "less_flat_ring", "less_flat_ground")
+_GRAPH_FIELDS = ("pos", "quat", "node_mask", "edge_i", "edge_j", "edge_pos",
+                 "edge_quat", "edge_weight")
+_SUBMAP_FIELDS = ("submap_sharp", "submap_sharp_m", "submap_flat",
+                  "submap_flat_m")
+
+
+def feature_set_fields(f, prefix: str = "") -> dict:
+    """A LOAM ``FeatureSet`` (the JAX package's or the port's: the same
+    field names) as numpy by ``prefix + field``."""
+    return {prefix + k: _np(getattr(f, k)) for k in _FEATURE_FIELDS}
+
+
+def port_feature_set(record, device, prefix: str = ""):
+    """The port's ``slam.features.FeatureSet`` from a record of
+    :func:`feature_set_fields`."""
+    from dddmr_navigation_tpu_torch.slam.features import FeatureSet
+    return FeatureSet(*(tensor(record[prefix + k], device)
+                        for k in _FEATURE_FIELDS))
+
+
+def pose_graph_fields(g, prefix: str = "graph_") -> dict:
+    """A padded pose graph (``PoseGraphArrays``, either package's) as
+    numpy by ``prefix + field``."""
+    return {prefix + k: _np(getattr(g, k)) for k in _GRAPH_FIELDS}
+
+
+def port_pose_graph(record, device, prefix: str = "graph_"):
+    """The port's ``slam.pose_graph.PoseGraphArrays`` from a record of
+    :func:`pose_graph_fields`."""
+    from dddmr_navigation_tpu_torch.slam.pose_graph import PoseGraphArrays
+    return PoseGraphArrays(*(tensor(record[prefix + k], device)
+                             for k in _GRAPH_FIELDS))
+
+
+def keyframe_fields(sess) -> dict:
+    """A mapping session's keyframes as numpy: each ``FeatureSet`` field
+    stacked over keyframes (``kf_<field>``), and the patched ground and
+    ground-edge clouds concatenated (``kf_ground``, ``kf_ground_edge``,
+    with per-keyframe lengths under ``__len``; a keyframe recorded without
+    a scan has empty clouds). A keyframe never changes once added, so a
+    record can hold them once."""
+    feats = [to_numpy(f) for f in sess.keyframe_feats]
+    out = {f"kf_{k}": np.stack([np.asarray(getattr(f, k)) for f in feats])
+           for k in _FEATURE_FIELDS} if feats else {}
+    for name in ("ground", "ground_edge"):
+        clouds = [np.zeros((0, 3), np.float32) if c is None
+                  else np.asarray(c, np.float32)
+                  for c in getattr(sess, f"keyframe_{name}")]
+        out[f"kf_{name}"] = (np.concatenate(clouds) if clouds
+                             else np.zeros((0, 3), np.float32))
+        out[f"kf_{name}__len"] = np.asarray([len(c) for c in clouds],
+                                            np.int64)
+    return out
+
+
+def mapping_fields(sess, keyframes: bool = True) -> dict:
+    """What a mapping session (either package's: the same attribute
+    names) carries from scan to scan, as numpy by name: the current pose,
+    the counts, the padded graph (``graph_*``), the loop closures ((L, 3):
+    i, j, fitness), the submap (``submap_*``, absent when there is none)
+    and, with ``keyframes``, :func:`keyframe_fields`."""
+    out = {"cur_pos": np.asarray(sess.cur_pos, np.float32),
+           "cur_quat": np.asarray(sess.cur_quat, np.float32),
+           "n_keyframes": np.int64(sess.n_keyframes),
+           "n_edges": np.int64(sess.n_edges),
+           "paused": np.bool_(sess.paused),
+           "loop_closures": np.asarray(
+               [(i, j, f) for i, j, f in sess.loop_closures],
+               np.float64).reshape(-1, 3)}
+    out.update(pose_graph_fields(sess.graph))
+    if sess._submap is not None:
+        out.update({k: _np(v) for k, v in zip(_SUBMAP_FIELDS,
+                                              sess._submap)})
+    if keyframes:
+        out.update(keyframe_fields(sess))
+    return out
+
+
+def port_mapping_state(f: dict, cfg, device, keyframes: dict = None):
+    """The port's ``slam.pipeline.MappingSession`` in the state of a
+    :func:`mapping_fields` record ``f``, on ``device``: its first
+    ``n_keyframes`` keyframes from ``f``'s ``kf_*`` arrays or from
+    ``keyframes`` (a :func:`keyframe_fields` record of at least as many
+    keyframes); the submap from ``f``, or rebuilt from the keyframes and
+    the graph where ``f`` has none (between a keyframe and the next, the
+    submap is the rebuild of the state)."""
+    from dddmr_navigation_tpu_torch.slam.features import FeatureSet
+    from dddmr_navigation_tpu_torch.slam.pipeline import MappingSession
+    kf = f if keyframes is None else keyframes
+    n = int(f["n_keyframes"])
+    sess = MappingSession(cfg=cfg, device=device,
+                          graph=port_pose_graph(f, device))
+    sess.cur_pos = np.array(f["cur_pos"], np.float32)
+    sess.cur_quat = np.array(f["cur_quat"], np.float32)
+    sess.n_keyframes = n
+    sess.n_edges = int(f["n_edges"])
+    sess.paused = bool(f["paused"])
+    sess.loop_closures = [(int(i), int(j), float(x))
+                          for i, j, x in np.asarray(f["loop_closures"])]
+    for i in range(n):
+        host = FeatureSet(*(np.array(kf[f"kf_{k}"][i])
+                            for k in _FEATURE_FIELDS))
+        sess.keyframe_host.append(host)
+        sess.keyframe_feats.append(FeatureSet(*(tensor(x, device)
+                                                for x in host)))
+    for name in ("ground", "ground_edge"):
+        lens = np.asarray(kf[f"kf_{name}__len"])
+        starts = np.concatenate([[0], np.cumsum(lens)])
+        getattr(sess, f"keyframe_{name}").extend(
+            np.array(kf[f"kf_{name}"][starts[i]:starts[i + 1]], np.float32)
+            for i in range(n))
+    if _SUBMAP_FIELDS[0] in f:
+        sess._submap = tuple(tensor(f[k], device) for k in _SUBMAP_FIELDS)
+    else:
+        sess._rebuild_submap()
+    return sess

@@ -1,5 +1,5 @@
-"""Map builders and PCD files (the port's copies of part of
-``dddmr_navigation_tpu/io``)."""
+"""Map builders, PCD files and occupancy grids (the port's copies of part
+of ``dddmr_navigation_tpu/io``)."""
 from dddmr_navigation_tpu_torch.io.maps import (
     box_obstacle,
     flat_ground_map,

@@ -15,6 +15,10 @@ fixpoint), and XLA on the CPU does not round as eager PyTorch does:
   subnormal results to zero (:func:`exp_fma`);
 * ``jnp.sqrt`` is correctly rounded, where PyTorch's vectorised f32 sqrt
   on the CPU may miss by an ulp (:func:`sqrt_rn`);
+* ``jnp.sum`` over a long axis is a tree: windows of 32 summed in order,
+  then windows of 32 of those, until 32 or fewer remain, which are summed
+  in order (:func:`sum_rows_xla`); ``jnp.mean`` multiplies that by the
+  reciprocal of the count;
 * ``jnp.cumsum`` is a blocked scan: sequential f32 sums within blocks of
   16, plus the scan of the block totals (:func:`cumsum_xla`), where
   ``torch.cumsum`` accumulates otherwise on each device;
@@ -62,15 +66,18 @@ def fma(a, b, c):
     a = a.double() if torch.is_tensor(a) else a
     b = b.double() if torch.is_tensor(b) else b
     c = c.double() if torch.is_tensor(c) else c
+    if torch.is_tensor(a) and torch.is_tensor(b) and torch.is_tensor(c):
+        return torch.addcmul(c, a, b).float()     # one kernel for a·b + c
     return (a * b + c).float()
 
 
 def fma_dot(a, b):
     """Σ a·b over the last axis as acc = fma(a[i], b[i], acc); ``a`` and
     ``b`` broadcast against each other."""
-    acc = (a[..., 0].double() * b[..., 0].double()).float()
+    ad, bd = a.double(), b.double()
+    acc = (ad[..., 0] * bd[..., 0]).float()
     for i in range(1, a.shape[-1]):
-        acc = fma(a[..., i], b[..., i], acc)
+        acc = torch.addcmul(acc.double(), ad[..., i], bd[..., i]).float()
     return acc
 
 
@@ -86,6 +93,42 @@ def fma_norm(v):
 
 
 _SCAN_BLOCK = 16
+_REDUCE_WINDOW = 32
+
+
+def _sum_in_order(x):
+    """Σ over axis 0, left to right, in f32."""
+    acc = x[0]
+    for i in range(1, x.shape[0]):
+        acc = acc + x[i]
+    return acc
+
+
+def sum_rows_xla(x):
+    """f32 sum over axis 0 as XLA on the CPU reduces it: an axis longer
+    than 32 is zero-padded to whole windows of 32 (the padding split
+    between its two ends, the smaller half first) and each window summed
+    in order; the window sums are reduced the same way, and the last 32 or
+    fewer are summed in order. The submap's target mean reads it: matched
+    against a 1e6-padded submap, the squared distances cancel down to the
+    rounding of that mean."""
+    while x.shape[0] > _REDUCE_WINDOW:
+        n = -(-x.shape[0] // _REDUCE_WINDOW)
+        pad = n * _REDUCE_WINDOW - x.shape[0]
+        low = torch.zeros((pad // 2,) + x.shape[1:], dtype=x.dtype,
+                          device=x.device)
+        high = torch.zeros((pad - pad // 2,) + x.shape[1:], dtype=x.dtype,
+                           device=x.device)
+        x = torch.cat([low, x, high]).reshape(
+            (n, _REDUCE_WINDOW) + x.shape[1:]).transpose(0, 1)
+        x = _sum_in_order(x)
+    return _sum_in_order(x)
+
+
+def mean_rows_xla(x):
+    """``jnp.mean`` over axis 0 (:func:`sum_rows_xla` times the f32
+    reciprocal of the count)."""
+    return sum_rows_xla(x) * recip(x.shape[0])
 
 
 def cumsum_xla(x):

@@ -211,3 +211,39 @@ def test_pcd_matches(tmp_path, encoding):
     comp = tpcd.lzf_compress(raw)
     assert comp == jpcd.lzf_compress(raw)
     assert tpcd.lzf_decompress(comp, len(raw)) == raw
+
+
+@pytest.mark.parametrize("encoding", ["P2", "P5"])
+def test_occupancy_matches(tmp_path, encoding):
+    """io/occupancy.py: ``read_pgm`` of a P2 and a P5 image,
+    ``occupancy_to_clouds`` of it (plain and negated), and
+    ``cloud_to_occupancy`` of the clouds (and of an empty cloud) equal the
+    original's."""
+    from dddmr_navigation_tpu.io import occupancy as jocc
+    from dddmr_navigation_tpu_torch.io import occupancy as tocc
+    rng = np.random.default_rng(7)
+    img = rng.choice(np.array([0, 205, 254], np.uint8), size=(23, 31),
+                     p=[0.2, 0.1, 0.7])
+    path = tmp_path / "map.pgm"
+    if encoding == "P5":
+        path.write_bytes(b"P5\n# map\n31 23\n255\n" + img.tobytes())
+    else:
+        path.write_text("P2\n31 23\n255\n" + "\n".join(
+            " ".join(str(v) for v in row) for row in img) + "\n")
+    grid = tocc.read_pgm(str(path))
+    np.testing.assert_array_equal(grid, jocc.read_pgm(str(path)))
+    np.testing.assert_array_equal(grid, img)
+    for negate in (False, True):
+        tg, tw = tocc.occupancy_to_clouds(grid, 0.05, (1.0, -2.0),
+                                          negate=negate)
+        jg, jw = jocc.occupancy_to_clouds(grid, 0.05, (1.0, -2.0),
+                                          negate=negate)
+        np.testing.assert_array_equal(tg, jg)
+        np.testing.assert_array_equal(tw, jw)
+        for cloud in (tg, tw):
+            tgrid, torigin = tocc.cloud_to_occupancy(cloud, 0.05)
+            jgrid, jorigin = jocc.cloud_to_occupancy(cloud, 0.05)
+            np.testing.assert_array_equal(tgrid, jgrid)
+            assert torigin == jorigin
+    empty = np.zeros((0, 3), np.float32)
+    assert tocc.cloud_to_occupancy(empty)[0].shape == (0, 0)

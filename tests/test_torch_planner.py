@@ -515,6 +515,14 @@ def test_port_never_imports_jax():
             "import dddmr_navigation_tpu_torch.state_estimation"
             ".global_localization\n"
             "import dddmr_navigation_tpu_torch.parallel.multihost\n"
+            "import dddmr_navigation_tpu_torch.io.occupancy\n"
+            "import dddmr_navigation_tpu_torch.slam\n"
+            "import dddmr_navigation_tpu_torch.slam.projection\n"
+            "import dddmr_navigation_tpu_torch.slam.features\n"
+            "import dddmr_navigation_tpu_torch.slam.scan_matching\n"
+            "import dddmr_navigation_tpu_torch.slam.pose_graph\n"
+            "import dddmr_navigation_tpu_torch.slam.pipeline\n"
+            "import dddmr_navigation_tpu_torch.slam.editor\n"
             "fn, args = dddmr_navigation_tpu_torch.entry.entry('cpu')\n"
             "fn(*args)\n"
             "from dddmr_navigation_tpu_torch import entry as e\n"
@@ -549,6 +557,14 @@ def test_port_never_imports_jax():
             "gl = e.make_global_localization(\n"
             "    gsc, torch.Generator().manual_seed(0), device='cpu')\n"
             "assert len(e.run_global_localization(gsc, gl).n) == 2\n"
+            "from dddmr_navigation_tpu_torch.config import SlamConfig\n"
+            "ssc = e.slam_scenario(SlamConfig(num_horizontal_scans=120,\n"
+            "                                 max_less_flat=256,\n"
+            "                                 max_keyframes=8, max_edges=8,\n"
+            "                                 scan_match_iters=2,\n"
+            "                                 map_match_iters=2), 2)\n"
+            "mc = e.run_mapping_chain(e.make_mapping_session(ssc, 'cpu'), ssc)\n"
+            "assert len(mc.keyframes) == 2\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
             "             or m == 'dddmr_navigation_tpu'\n"
@@ -604,6 +620,8 @@ def test_entry_points_default_to_cuda():
         "SubmapManager": lambda: SubmapManager(
             PoseGraph(np.zeros((1, 8), np.float32), [ground], [ground]),
             MCLConfig()).initialize([0.0, 0.0, 0.0]).ground_normal,
+        "make_mapping_session": lambda: entry.make_mapping_session(
+            ).graph.pos,
     }
     have_card = torch.cuda.is_available()
     for name, call in calls.items():
