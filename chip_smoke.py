@@ -3,9 +3,11 @@ card, at the full width of the 64-robot headline fleet, the fused tick of
 bench config 3, the full-fidelity fleet of bench config 4 (also sharded
 over an NCCL process group), the single-robot navigation session, the
 localization vertical (pose-graph submaps, feature weights, odom3d and
-global localization from an unknown start) and the SLAM vertical (one
+global localization from an unknown start), the SLAM vertical (one
 mapping run at ``SlamConfig()``'s full width, its map saved, edited and
-localized on).
+localized on) and semantic segmentation (the 19-class DDRNet-slim at
+240×320, its reroute chain and train step), with the runtime's
+checkpoints and traces.
 
     python3 chip_smoke.py
 
@@ -207,6 +209,38 @@ kernel); any failed check raises:
      loop-closure one; peak memory;
  34. the phase's wall time.
 
+Then the semantic phase (``entry.semantic_scenario()``: the committed
+19-class DDRNet-slim artifact, net width 48, 240×320, ~1.43 M parameters,
+on the 8 EVAL-family frames of the JAX test's seed; ``bench.py::
+bench_semantic``'s shape), and the runtime on the card. It runs none of
+the hand-written kernels (the JAX net reaches no Pallas kernel: its
+convolutions run in cuDNN here); any failed check raises:
+ 35. the frames regenerated from the seed against the golden file's
+     checksums (``dddmr_navigation_tpu_torch/testdata/
+     semantic_golden.npz``, ``tools/make_semantic_golden.py``); frame 0's
+     logits within ``SEM_LOGITS_TOL`` of JAX's; the class masks at batch 8
+     equal JAX's wherever its top-two gap exceeds 2·``SEM_LOGITS_TOL``,
+     at most ``SEM_FLIP_SHARE`` of the pixels flipped; mIoU within 0.005
+     of JAX's and at least max(0.30, 0.8 × the artifact's held-out mIoU −
+     0.1), the JAX test's floor; the f32 logits convolution within 1e-5 of
+     f64 with TF32 allowed in the process (so ``semantic.ieee_f32`` turns
+     it off), its f32 resize equal to the CPU's bit for bit;
+ 36. the 4-class reroute chain (``entry.run_semantic_reroute``): > 90 % of
+     the detected zone points in the true zone, the straight plan equal to
+     JAX's and the zone's bending > 1.2 m inside x ∈ (2, 5), the mask as
+     JAX's but for 0.1 % of its pixels;
+ 37. 12 Adam steps on the card from the JAX train test's initial weights
+     (stored in the golden file): the loss falls ≥ 10 %, each step's within
+     2 % of JAX's;
+ 38. frames/s at batch 1 and 8 (CUDA events, ``SEM_FRAMES_TIMED`` calls
+     each) beside the card's name and power limit, peak memory;
+ 39. per batch size, a profile (device busy, kernels a call, top device
+     operations) and the host syncs of one call;
+ 40. ``entry.session_checkpoint_round_trip`` on the full session scenario
+     (``runtime.CheckpointManager``: the restored session ticks as the
+     original does) and ``runtime.tracing.trace`` writing a trace with the
+     card's kernels; the phase's wall time.
+
 The line before the last is one JSON object with each kernel's route,
 source, launches, error, times and bound: ``launches`` counts the five
 kernel phases' chains (each counter set to 0 just before its chain and
@@ -320,6 +354,17 @@ SLAM_LOC_SEEDS = tuple(range(16))  # the localization passes' generators
 # (tools/slam_localization_rate.py). The card's passes are held to JAX's
 # largest final error in the median.
 SLAM_LOC_FINAL = 3.59
+# The segmenter's logits against JAX's: its activations are bf16, and where
+# a sum's order differs (a convolution, a group statistic) an activation
+# rounds to the neighbouring bf16 value now and then; through the last
+# layers that moves a logit by a few hundredths (0.021-0.035 over the 8
+# frames on the CPU, whose logits span +-27). The same bounds hold the CPU
+# (tests/test_torch_semantic.py).
+SEM_LOGITS_TOL = 0.05
+SEM_FLIP_SHARE = 5e-4             # class flips, share of the pixels
+SEM_FRAMES_TIMED = 50             # calls timed at each batch size
+SEM_PROFILED_CALLS = 5
+SEM_CKPT_TICKS = 4                # session ticks before the checkpoint
 
 
 def fail(msg):
@@ -773,6 +818,7 @@ def main():
                                      card)
     localization_phase(np, torch, dev, entry, card)
     slam_phase(np, torch, dev, entry, card)
+    semantic_phase(np, torch, dev, entry, card)
 
     print(card)
     out = []
@@ -2438,6 +2484,186 @@ def slam_phase(np, torch, dev, entry, card):
     phase_s = time.perf_counter() - t_phase
     print(f"SLAM phase: {phase_s:.1f} s wall; card {card}", flush=True)
 
+
+def semantic_phase(np, torch, dev, entry, card):
+    """Steps 35-41: semantic segmentation at full width, and the runtime's
+    checkpoints and traces on the card."""
+    import tempfile
+    from dddmr_navigation_tpu_torch.interop import semantic_params_from
+    from dddmr_navigation_tpu_torch.perception import semantic as sem
+    from dddmr_navigation_tpu_torch.perception.semantic_data import miou
+    from dddmr_navigation_tpu_torch.runtime import trace
+
+    t_phase = time.perf_counter()
+    g = dict(np.load(os.path.join(ROOT, "dddmr_navigation_tpu_torch",
+                                  "testdata", "semantic_golden.npz")))
+    # 35. the 19-class artifact against the JAX golden
+    sc = entry.semantic_scenario(device=dev)
+    # numpy's vectorized trigonometry may round otherwise on another host's
+    # CPU: the regenerated frames may differ from the recorded ones in ulps
+    sums = sc.rgb.astype(np.float64).sum(axis=(1, 2, 3))
+    rgb_rel = float(np.abs(sums / g["rgb_sums"] - 1).max())
+    print(f"EVAL frames regenerated with numpy {np.__version__}: checksums "
+          f"{rgb_rel!r} off the recorded ones (relative)", flush=True)
+    check(rgb_rel <= 1e-6, "the regenerated EVAL frames differ from the "
+          f"recorded ones by {rgb_rel}")
+    n_params = sum(p.numel() for p in sc.params.values())
+    rgb8 = torch.as_tensor(sc.rgb, device=dev)
+    with torch.no_grad():
+        logits0 = sc.model(rgb8[:1])[0].cpu().numpy()
+        masks = sem.infer_classes(sc.model, sc.params, rgb8).cpu().numpy()
+    err = float(np.abs(logits0 - g["logits0"]).max())
+    want = g["masks"].astype(np.int32)
+    decided = g["gap"].astype(np.float32) > 2 * SEM_LOGITS_TOL
+    flips = masks != want
+    score = miou(masks, sc.labels, num_classes=19)
+    floor = max(0.30, 0.8 * sc.meta["miou_heldout"] - 0.1)
+    print(f"semantic golden on the card (19 classes, width 48, {n_params} "
+          f"parameters, 8 EVAL frames of 240x320 at batch 8): frame 0 "
+          f"logits max |err| {err!r} (tolerance {SEM_LOGITS_TOL}, range "
+          f"{float(np.abs(g['logits0']).max()):.2f}); class flips "
+          f"{int(flips.sum())} of {flips.size} "
+          f"({100 * float(flips.mean()):.4f}%, bound "
+          f"{100 * SEM_FLIP_SHARE}%), {int((flips & decided).sum())} where "
+          f"JAX's top-two gap exceeds {2 * SEM_LOGITS_TOL}; mIoU {score!r} "
+          f"(JAX {float(g['miou'])!r}, floor {floor:.4f}); card {card}",
+          flush=True)
+    check(err <= SEM_LOGITS_TOL, f"logits off JAX's by {err}")
+    check(not (flips & decided).any(), "a class flipped where JAX's top-two "
+          f"gap exceeds {2 * SEM_LOGITS_TOL}")
+    check(flips.mean() <= SEM_FLIP_SHARE, f"{int(flips.sum())} class flips")
+    check(abs(score - float(g["miou"])) <= 0.005, f"mIoU {score} against "
+          f"JAX's {float(g['miou'])}")
+    check(score >= floor, f"EVAL-family mIoU {score} under {floor}")
+    # the f32 parts (the logits convolution, the f32 resizes) run with TF32
+    # off even where the process allows it
+    x = (torch.rand((1, 96, 30, 40), device=dev) * 4).bfloat16()
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            y = sc.model.Conv_0(x)
+            up = sem.resize_bilinear(y, 120, 160).cpu()
+            ref = torch.nn.functional.conv2d(
+                x.double().cpu(), sc.model.Conv_0.weight.double().cpu())
+            ref = ref + sc.model.Conv_0.bias.double().cpu()[:, None, None]
+            up_cpu = sem.resize_bilinear(y.cpu(), 120, 160)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    rel = float(((y.cpu().double() - ref).abs()
+                 / ref.abs().clamp_min(1.0)).max())
+    print(f"f32 logits convolution with TF32 allowed in the process: max "
+          f"relative error {rel!r} against f64 (TF32's 10-bit mantissa would "
+          f"give ~1e-3); its f32 resize equal to the CPU's bit for bit: "
+          f"{torch.equal(up, up_cpu)}", flush=True)
+    check(rel <= 1e-5, f"the logits convolution ran in TF32 ({rel})")
+    check(torch.equal(up, up_cpu), "the f32 resize differs from the CPU's")
+
+    # 36. the 4-class reroute chain
+    w0 = time.perf_counter()
+    r = entry.run_semantic_reroute(dev)
+    mask_flips = int((r["pred"] != g["reroute_mask"].astype(np.int32)).sum())
+    bend_free = entry.reroute_bend(r["ground"], r["ids_free"])
+    bend_zone = entry.reroute_bend(r["ground"], r["ids_zone"])
+    print(f"reroute chain on the card ({time.perf_counter() - w0:.2f} s): "
+          f"{mask_flips} mask pixels off JAX's of {r['pred'].size}; "
+          f"{int(r['in_zone'].sum())} zone points (JAX "
+          f"{int(g['reroute_zone_points'])}), "
+          f"{100 * float(r['in_zone'].mean()):.1f}% in the true zone; plans "
+          f"ok {r['ok_free']}/{r['ok_zone']}, largest |y| in x in (2, 5): "
+          f"{bend_free:.2f} m free, {bend_zone:.2f} m with the zone; free "
+          f"plan equal to JAX's: "
+          f"{np.array_equal(r['ids_free'], g['reroute_ids_free'])}",
+          flush=True)
+    check(r["ok_free"] and r["ok_zone"], "a reroute plan failed")
+    check(len(r["zone"]) > 50 and r["in_zone"].mean() > 0.9,
+          "the detected zone points miss the true zone")
+    check(bend_free < 0.3 and bend_zone > 1.2, "the plan did not bend "
+          f"around the zone ({bend_free}, {bend_zone})")
+    check(mask_flips <= 1e-3 * r["pred"].size, f"{mask_flips} mask flips")
+    check(np.array_equal(r["ids_free"], g["reroute_ids_free"]),
+          "the straight plan differs from JAX's")
+
+    # 37. twelve train steps on the card from JAX's initial weights
+    rgb, labels = entry.semantic_train_task()
+    model, _ = sem.init_segmenter(32, 32, 3, 8, device=dev)
+    params = semantic_params_from(
+        {k[len("train_init"):]: v for k, v in g.items()
+         if k.startswith("train_init")}, dev)
+    init_opt, step = sem.make_train_step(model, learning_rate=3e-3)
+    state = init_opt(params)
+    rgb_t, lab_t = torch.as_tensor(rgb, device=dev), torch.as_tensor(
+        labels, device=dev)
+    losses = []
+    w0 = time.perf_counter()
+    for _ in range(12):
+        params, state, loss = step(params, state, rgb_t, lab_t)
+        losses.append(float(loss))
+    drift = float(np.max(np.abs(np.asarray(losses) / g["train_losses"] - 1)))
+    print(f"12 train steps on the card ({time.perf_counter() - w0:.2f} s): "
+          f"loss {losses[0]:.5f} -> {losses[-1]:.5f} (JAX "
+          f"{float(g['train_losses'][0]):.5f} -> "
+          f"{float(g['train_losses'][-1]):.5f}), relative departure from "
+          f"JAX's {abs(losses[0] / float(g['train_losses'][0]) - 1)!r} at "
+          f"step 1, {drift!r} at most", flush=True)
+    check(losses[-1] <= 0.9 * losses[0], f"losses {losses}")
+    check(drift <= 0.02, f"train losses off JAX's by {drift}")
+
+    # 38-39. frames/s at batch 1 and 8, device busy, launches, memory
+    reps = SEM_FRAMES_TIMED
+    for batch in (1, 8):
+        x = rgb8[:batch]
+
+        def infer(x=x):
+            return sem.infer_classes(sc.model, None, x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        ms = cuda_ms(infer, reps)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"semantic inference at batch {batch} (CUDA events, {reps} "
+              f"calls after 2 warm-up): {ms!r} ms a call, "
+              f"{ms / batch!r} ms a frame, {1e3 * batch / ms:.1f} frames/s "
+              f"(the reference's TensorRT engine: 15 fps on an Orin Nano, "
+              f"19 on an Orin AGX); peak device memory "
+              f"{peak / 2**20:.1f} MiB ({held / 2**20:.1f} MiB held before);"
+              f" card {card}", flush=True)
+        print(f"profile of {SEM_PROFILED_CALLS} calls at batch {batch} "
+              f"(ticks = calls):")
+        profile_ticks(infer, SEM_PROFILED_CALLS, ())
+        sites, _ = sync_sites(torch, infer)
+        print(f"host syncs in one call at batch {batch}: "
+              f"{sum(sites.values())} ({site_text(sites)})")
+
+    # 40. the runtime: a session checkpoint round trip and a trace
+    with tempfile.TemporaryDirectory() as d:
+        w0 = time.perf_counter()
+        ck = entry.session_checkpoint_round_trip(
+            entry.session_scenario(), os.path.join(d, "ck"),
+            ticks=SEM_CKPT_TICKS, device=dev)
+        print(f"session checkpoint round trip on the card "
+              f"({time.perf_counter() - w0:.1f} s): restored step "
+              f"{ck['step']}, state equal {ck['same_state']}, next tick "
+              f"{ck['out_a']} (original) and {ck['out_b']} (restored)",
+              flush=True)
+        check(ck["step"] == SEM_CKPT_TICKS and ck["same_state"],
+              "the checkpoint did not restore the session's state")
+        check(ck["out_a"] == ck["out_b"], "the restored session ticks "
+              "otherwise than the original")
+        with trace(os.path.join(d, "trace")) as prof:
+            sem.infer_classes(sc.model, None, rgb8[:1])
+        files = os.listdir(os.path.join(d, "trace"))
+        kernels = sum(ev.count for ev in prof.key_averages()
+                      if ev.device_type == torch.autograd.DeviceType.CUDA)
+        print(f"runtime.tracing.trace on the card: {files} written, "
+              f"{kernels} device kernels recorded", flush=True)
+        check(len(files) == 1, "the trace wrote no file")
+        check(kernels > 0, "the trace recorded no device kernel")
+    print(f"semantic phase: {time.perf_counter() - t_phase:.1f} s wall; card "
+          f"{card}", flush=True)
 
 if __name__ == "__main__":
     main()

@@ -39,12 +39,21 @@
   through ``bench.py::bench_slam``'s world: a closed 3 m circle of 56
   scans that closes loops on its second pass, and the teacher-forced
   replay of the JAX package's recorded run.
+* :func:`semantic_scenario` / :func:`load_segmenter` /
+  :func:`run_semantic_reroute` — the DDRNet-slim segmenter at full width
+  (the committed 19-class artifact at 240×320 on EVAL-family frames, as
+  ``bench.py::bench_semantic`` runs it) and the 4-class artifact's
+  mask → class cloud → no-entry field → global-plan reroute of
+  ``tests/test_semantic_e2e.py``.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import dataclasses
+import functools
+import json
+import os
 import time
 
 import numpy as np
@@ -73,6 +82,16 @@ from dddmr_navigation_tpu_torch.state_estimation.likelihood import (
     build_submap_context)
 from dddmr_navigation_tpu_torch.planning.local.planner import (
     compute_velocity_command, make_global_plan)
+from dddmr_navigation_tpu_torch.perception import semantic_scene19 as s19
+from dddmr_navigation_tpu_torch.perception.layers import no_entry_dgraph
+from dddmr_navigation_tpu_torch.planning.global_.graph import (
+    build_ground_graph)
+from dddmr_navigation_tpu_torch.planning.global_.planner import plan_on_graph
+from dddmr_navigation_tpu_torch.perception.semantic import (
+    DDRNetSlim, infer_classes, init_segmenter, load_params,
+    segmentation_to_pointcloud)
+from dddmr_navigation_tpu_torch.perception.semantic_data import (
+    CameraIntrinsics, camera_to_world, render_scene)
 
 
 def build_inputs(device):
@@ -1264,3 +1283,185 @@ def run_slam_localization(sc: SlamScenario, graph, generators,
                 est[:2] - cp[0, :2].cpu().numpy())), est))
         passes.append(out)
     return passes
+
+
+# ---------------------------------------------------------------------------
+# semantic segmentation: the 19-class net at full width, the 4-class reroute
+# ---------------------------------------------------------------------------
+
+ARTIFACTS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "artifacts")
+SEMANTIC19 = os.path.join(ARTIFACTS, "semantic_ddrnet19.npz")
+SEMANTIC4 = os.path.join(ARTIFACTS, "semantic_ddrnet.npz")
+SEMANTIC_SEED = 555          # the JAX test's fresh EVAL-family seed
+SEMANTIC_FRAMES = 8
+REROUTE_SEED = 5
+REROUTE_ZONE = (3.5, 0.0, 2.0, 2.0)        # x ∈ [2.5, 4.5], y ∈ [-1, 1]
+REROUTE_START = (0.5, 0.0, 0.0)
+REROUTE_GOAL = (7.5, 0.0, 0.0)
+
+
+def load_segmenter(path: str = SEMANTIC19, device="cuda"):
+    """(model, params, meta) of a committed segmenter artifact (the JAX
+    package's npz and its ``.json`` metadata); the model holds the
+    params."""
+    with open(path + ".json") as f:
+        meta = json.load(f)
+    h, w = meta["image_hw"]
+    model, template = init_segmenter(h, w, meta["num_classes"],
+                                     meta["net_width"], device=device)
+    params = load_params(path, template)
+    model.load_state_dict(params)
+    return model, params, meta
+
+
+class SemanticScenario(NamedTuple):
+    model: DDRNetSlim
+    params: dict
+    meta: dict
+    rgb: np.ndarray       # (N, H, W, 3) f32 EVAL-family frames
+    labels: np.ndarray    # (N, H, W) int32 true classes
+
+
+def semantic_scenario(frames: int = SEMANTIC_FRAMES, device="cuda"):
+    """The deployed segmenter at full width: the 19-class artifact (net
+    width 48, 240×320, ~1.33 M parameters) and ``frames`` EVAL-family
+    frames from the JAX test's seed (``s19.make_batch19``, seed 555), the
+    family the artifact never trained on; ``bench.py::bench_semantic``
+    times it at batch 1 and 8."""
+    model, params, meta = load_segmenter(SEMANTIC19, device)
+    h, w = meta["image_hw"]
+    rng = np.random.default_rng(SEMANTIC_SEED)
+    rgb, labels = s19.make_batch19(rng, frames, h, w, preset=s19.EVAL_PRESET)
+    return SemanticScenario(model, params, meta, rgb, labels)
+
+
+def _reroute_plan(ground, graph, dgraph, device="cuda"):
+    """One global plan from :data:`REROUTE_START` to :data:`REROUTE_GOAL`
+    on ``ground`` with the node field ``dgraph`` (G,) (the default
+    planner, as ``tests/test_semantic_e2e.py`` plans): (ok, node ids)."""
+    g = len(ground)
+    t = functools.partial(torch.as_tensor, device=device)
+    res = plan_on_graph(
+        GlobalPlannerConfig(), t(graph.nbr_idx), t(graph.nbr_dist),
+        t(graph.nbr_valid), t(ground), t(np.ones(g, bool)),
+        dgraph[None], t(np.zeros(g, np.float32)), t(graph.avg_intensity),
+        t(np.array([REROUTE_START], np.float32)),
+        t(np.array([REROUTE_GOAL], np.float32)),
+        inscribed_radius=0.5, inflation_descending_rate=2.0)
+    ids = res.node_ids[0][res.node_valid[0]].cpu().numpy()
+    return bool(res.ok[0]), ids
+
+
+def run_semantic_reroute(device="cuda") -> dict:
+    """The deployed consumption chain of ``tests/test_semantic_e2e.py``
+    (`trt_interface.py` → `semantic_segmentation2point_cloud.cpp` →
+    `no_entry_layer.cpp`) on the port's modules, with the 4-class artifact:
+    a camera sees a forbidden (grass) zone across the robot's path
+    (``render_scene``, seed 5, zone :data:`REROUTE_ZONE`); its class mask →
+    the class-2 point cloud → world frame → the no-entry field on a 16×8 m
+    floor → the global plan, which must bend around the zone.
+
+    Returns ``pred`` (H, W) int32, the world points of class 2 (``zone``)
+    and which of them lie in the true zone (``in_zone``), the field
+    (``field``), and both plans (``ok_free``/``ids_free`` with no field,
+    ``ok_zone``/``ids_zone`` with it) with ``ground``."""
+    model, params, _ = load_segmenter(SEMANTIC4, device)
+    cam = CameraIntrinsics()
+    rng = np.random.default_rng(REROUTE_SEED)
+    rgb, depth, _, _, (origin, pitch) = render_scene(
+        rng, cam, n_boxes=0, zones=[REROUTE_ZONE], pitch_jitter=0.0)
+    pred = infer_classes(model, params,
+                         torch.as_tensor(rgb[None], device=device))[0]
+    cloud, valid = segmentation_to_pointcloud(
+        torch.as_tensor(depth, device=device), pred, cam.fx, cam.fy, cam.cx,
+        cam.cy, keep_classes=[2])
+    pts_cam = cloud[valid][:, :3].cpu().numpy()
+    zone = camera_to_world(pts_cam, origin, pitch)
+    cx, cy, sx, sy = REROUTE_ZONE
+    in_zone = ((np.abs(zone[:, 0] - cx) <= sx / 2 + 0.4)
+               & (np.abs(zone[:, 1] - cy) <= sy / 2 + 0.4)
+               & (np.abs(zone[:, 2]) <= 0.2))
+    ground = flat_ground_map(16, 8, 0.25)
+    ground[:, 0] += 7.0                  # x ∈ [-1, 15]
+    g = len(ground)
+    zone_pts = torch.as_tensor(zone[in_zone].astype(np.float32),
+                               device=device)
+    field = no_entry_dgraph(
+        torch.as_tensor(ground, device=device),
+        torch.ones(g, dtype=torch.bool, device=device), zone_pts,
+        torch.ones(len(zone_pts), dtype=torch.bool, device=device),
+        inflation_distance=1.0, max_obstacle_distance=9999.0)
+    graph = build_ground_graph(ground, radius=0.5, k_max=16)
+    ok_free, ids_free = _reroute_plan(
+        ground, graph, torch.full((g,), 9999.0, device=device), device)
+    ok_zone, ids_zone = _reroute_plan(ground, graph, field, device)
+    return {"pred": pred.cpu().numpy(), "zone": zone, "in_zone": in_zone,
+            "field": field.cpu().numpy(), "ground": ground,
+            "ok_free": ok_free, "ids_free": ids_free,
+            "ok_zone": ok_zone, "ids_zone": ids_zone}
+
+
+def reroute_bend(ground, ids) -> float:
+    """The largest |y| of a plan's nodes inside x ∈ (2, 5), where the zone
+    crosses the straight route (0 when the plan has none there)."""
+    p = ground[ids]
+    mid = (p[:, 0] > 2.0) & (p[:, 0] < 5.0)
+    return float(np.abs(p[mid, 1]).max()) if mid.any() else 0.0
+
+
+def session_checkpoint_round_trip(sc: SessionScenario, directory: str,
+                                  ticks: int = 4, device="cuda") -> dict:
+    """A mid-run checkpoint of the session through
+    ``runtime.CheckpointManager``: two sessions run the scenario's first
+    ``ticks`` ticks in lockstep; the first's ``checkpoint_state()`` is saved,
+    the second's device state is overwritten with a fresh session's, then
+    restored from the saved file; both tick once more on the same inputs.
+
+    Returns the step restored, both sessions' last tick (``out_a``,
+    ``out_b``: vx, wz, decision, done, succeeded), and ``same_state``
+    (every checkpointed tensor equal after the restore)."""
+    from dddmr_navigation_tpu_torch.runtime.checkpoint import (
+        CheckpointManager, tree_flatten)
+    a, b = make_session(sc, device), make_session(sc, device)
+    for s in (a, b):
+        s.set_goal(sc.goal)
+    pos, yaw, v, w = sc.start.copy(), 0.0, 0.0, 0.0
+
+    def tick(t):
+        pts, mask, quat, frames = session_inputs(sc, pos, yaw)
+        outs = []
+        for s in (a, b):
+            for c, (cp, cq, dp) in enumerate(frames):
+                s.push_depth_observation(c, cp, cq, dp, t * SESSION_DT)
+            outs.append(s.tick(pts, mask, pos, quat, v, w, t * SESSION_DT))
+        return outs
+
+    for t in range(ticks):
+        out_a, _ = tick(t)
+        v, w = out_a[0], out_a[1]
+        pos, yaw = step_pose(pos, yaw, v, w)
+    mgr = CheckpointManager(directory, keep=2)
+    mgr.save(ticks, a.checkpoint_state())
+    b.restore_state(make_session(sc, device).checkpoint_state())
+    step, state = mgr.restore_latest(b.checkpoint_state())
+    b.restore_state(state)
+    la, _ = tree_flatten(a.checkpoint_state())
+    lb, _ = tree_flatten(b.checkpoint_state())
+    same = len(la) == len(lb) and all(
+        torch.equal(x, y) if torch.is_tensor(x) else x == y
+        for x, y in zip(la, lb))
+    out_a, out_b = tick(ticks)
+    return {"step": step, "out_a": out_a, "out_b": out_b,
+            "same_state": same}
+
+
+def semantic_train_task():
+    """The JAX package's train test's synthetic task
+    (``tests/test_perception_layers.py``: class = brightness band of the
+    input, 4 frames of 32×32, 3 classes): (rgb (4, 32, 32, 3) f32, labels
+    (4, 32, 32) int32)."""
+    rng = np.random.default_rng(0)
+    rgb = rng.uniform(0, 1, (4, 32, 32, 3)).astype(np.float32)
+    labels = (rgb.mean(-1) * 3).astype(np.int32).clip(0, 2)
+    return rgb, labels

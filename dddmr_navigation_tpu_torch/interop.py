@@ -21,6 +21,9 @@ localization's (one robot whose particle count changes tick by tick).
 features, a padded pose graph and a mapping session's state as numpy;
 :func:`port_feature_set`, :func:`port_pose_graph` and
 :func:`port_mapping_state` build the port's from them.
+:func:`semantic_params_from` builds the port's segmenter state dict from the
+JAX package's flax weights (a params tree or its npz) and
+:func:`semantic_params_to` goes back.
 """
 from __future__ import annotations
 
@@ -561,3 +564,52 @@ def port_mapping_state(f: dict, cfg, device, keyframes: dict = None):
     else:
         sess._rebuild_submap()
     return sess
+
+
+def _flax_tree_items(tree, prefix=""):
+    """(keystr, leaf) of a nested dict of arrays, ``jax.tree_util.keystr``
+    style: ``['params']['ConvBN_0']['Conv_0']['kernel']``."""
+    for k in sorted(tree):
+        v = tree[k]
+        key = f"{prefix}['{k}']"
+        if isinstance(v, dict):
+            yield from _flax_tree_items(v, key)
+        else:
+            yield key, v
+
+
+def semantic_params_from(tree_or_npz, device="cuda") -> dict:
+    """The port's ``DDRNetSlim`` state dict from the JAX package's segmenter
+    weights: a flax params tree read out as numpy (``{'params': {...}}``)
+    or the npz dict the JAX package's ``save_params`` writes (keys
+    ``['params']['ConvBN_0']['Conv_0']['kernel']``, ...). Kernels HWIO →
+    OIHW; GroupNorm scales and biases and the logits bias as they are."""
+    from dddmr_navigation_tpu_torch.perception.semantic import (
+        from_flax_array)
+    if isinstance(tree_or_npz, dict) and "params" in tree_or_npz:
+        flat = dict(_flax_tree_items(tree_or_npz))
+    else:
+        flat = {k: tree_or_npz[k] for k in tree_or_npz}
+    out = {}
+    for key, v in flat.items():
+        parts = key.strip("[]'").split("']['")[1:]      # drop 'params'
+        leaf = {"kernel": "weight"}.get(parts[-1], parts[-1])
+        name = ".".join(parts[:-1] + [leaf])
+        out[name] = torch.as_tensor(from_flax_array(name, v), device=device)
+    return out
+
+
+def semantic_params_to(state_dict) -> dict:
+    """The inverse of :func:`semantic_params_from`: a flax params tree of
+    numpy arrays (``{'params': {'ConvBN_0': {'Conv_0': {'kernel': ...}}}}``)
+    from the port's state dict."""
+    from dddmr_navigation_tpu_torch.perception.semantic import to_flax_array
+    tree = {}
+    for name, t in state_dict.items():
+        parts = name.split(".")
+        leaf = {"weight": "kernel"}.get(parts[-1], parts[-1])
+        node = tree.setdefault("params", {})
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[leaf] = to_flax_array(name, t)
+    return tree

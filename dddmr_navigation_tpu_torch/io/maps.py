@@ -1,12 +1,14 @@
 """Synthetic map builders used by tests and benchmarks.
 
-The port's own copy of ``voxel_downsample``, ``flat_ground_map``,
-``multi_level_map`` and ``box_obstacle`` from
-``dddmr_navigation_tpu/io/maps.py`` (numpy only).
+The port's own copy of ``dddmr_navigation_tpu/io/maps.py`` (numpy only):
+``voxel_downsample``, ``flat_ground_map``, ``ramp_ground_map``,
+``corridor_map``, ``multi_level_map`` and ``box_obstacle``.
 
 The reference ships demo PCD maps (`dddmr_perception_3d/map/ground.pcd`,
 `map.pcd`) and a 2D-occupancy→ground generator (`occupancy2ground.cpp`); we
-generate equivalent synthetic grounds procedurally.
+generate equivalent synthetic grounds procedurally: flat floors, ramps, and
+wall-lined corridors — matching BASELINE.json's benchmark configs
+("flat single-floor recorded map", "ramp/slope map").
 """
 from __future__ import annotations
 
@@ -34,6 +36,35 @@ def flat_ground_map(size_x: float = 20.0, size_y: float = 20.0,
     gx, gy = np.meshgrid(xs, ys, indexing="ij")
     gz = np.full_like(gx, z)
     return np.stack([gx.ravel(), gy.ravel(), gz.ravel()], axis=1).astype(np.float32)
+
+
+def ramp_ground_map(size_x: float = 30.0, size_y: float = 8.0,
+                    resolution: float = 0.25, ramp_start: float = 5.0,
+                    ramp_end: float = 15.0, height: float = 2.0) -> np.ndarray:
+    """Flat → ramp → upper floor along +x (the reference's multi-level use
+    case; BASELINE config 2)."""
+    xs = np.arange(-size_x / 2, size_x / 2 + 1e-6, resolution)
+    ys = np.arange(-size_y / 2, size_y / 2 + 1e-6, resolution)
+    gx, gy = np.meshgrid(xs, ys, indexing="ij")
+    t = np.clip((gx - ramp_start) / max(ramp_end - ramp_start, 1e-6), 0.0, 1.0)
+    gz = t * height
+    return np.stack([gx.ravel(), gy.ravel(), gz.ravel()], axis=1).astype(np.float32)
+
+
+def corridor_map(length: float = 20.0, width: float = 4.0,
+                 resolution: float = 0.25, wall_height: float = 2.0):
+    """Corridor along +x: returns (ground, walls) clouds. Walls become the
+    static map cloud (obstacles above ground), as occupancy2ground extrudes
+    (`occupancy2ground.cpp:60-250`)."""
+    ground = flat_ground_map(length, width, resolution)
+    xs = np.arange(-length / 2, length / 2 + 1e-6, resolution)
+    zs = np.arange(0.0, wall_height + 1e-6, resolution)
+    gx, gz = np.meshgrid(xs, zs, indexing="ij")
+    wall_y = width / 2
+    left = np.stack([gx.ravel(), np.full(gx.size, wall_y), gz.ravel()], axis=1)
+    right = np.stack([gx.ravel(), np.full(gx.size, -wall_y), gz.ravel()], axis=1)
+    walls = np.concatenate([left, right]).astype(np.float32)
+    return ground, walls
 
 
 def multi_level_map(resolution: float = 0.25, clearance: float = 2.5,

@@ -74,6 +74,35 @@ def bins(spec: RangeImageSpec, elev, azim):
     return row, col
 
 
+def _bins_deg(spec: RangeImageSpec, elev_deg, azim_deg):
+    """Range-image (row, col) of directions given in degrees, as the JAX
+    package's jitted ``_bins`` rounds them: the offset, then one multiply
+    by the folded bin constant; float→int truncates."""
+    er = (elev_deg - spec.elev_min_deg) * recip_times(
+        max(spec.elev_max_deg - spec.elev_min_deg, 1e-6), spec.rows)
+    row = torch.clamp(er.int(), 0, spec.rows - 1)
+    ac = (azim_deg + 180.0) * recip_times(360.0, spec.cols)
+    col = torch.clamp(ac.int(), 0, spec.cols - 1)
+    return row, col
+
+
+def lookup_range(spec: RangeImageSpec, img, elev_deg, azim_deg):
+    """Min of the 3x3 bin neighborhood (rows clamp, columns wrap) of one
+    range image (rows, cols) at directions in degrees — the analogue of the
+    reference's distance-proportional spot size (min(dist/20+0.01, 0.1) m)
+    which widens the ray into a cone
+    (`multilayer_spinning_lidar.cpp:556-575`)."""
+    row, col = _bins_deg(spec, elev_deg, azim_deg)
+    out = torch.full(row.shape, torch.inf, dtype=torch.float32,
+                     device=img.device)
+    for dr in (-1, 0, 1):
+        for dc in (-1, 0, 1):
+            r = torch.clamp(row + dr, 0, spec.rows - 1).long()
+            c = torch.remainder(col + dc, spec.cols).long()
+            out = torch.minimum(out, img[r, c])
+    return out
+
+
 def build_range_image(spec: RangeImageSpec, sensor_pos, sensor_quat,
                       scan_pts, scan_mask):
     """Min-range image (B, rows, cols) of each robot's scan; empty bins

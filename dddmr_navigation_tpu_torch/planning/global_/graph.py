@@ -1,6 +1,6 @@
 """Ground point-cloud graph construction.
 
-The port's own copy of ``build_ground_graph`` from
+The port's own copy of ``build_ground_graph`` and ``pad_graph`` from
 ``dddmr_navigation_tpu/planning/global_/graph.py`` (numpy and SciPy only).
 
 The reference discovers successors dynamically per A* expansion with a
@@ -102,3 +102,18 @@ def build_ground_graph(ground_pts: np.ndarray,
         avg_intensity=avg_int.astype(np.float32),
         num_nodes=g,
     )
+
+
+def pad_graph(graph: GroundGraph, pad_to: int) -> GroundGraph:
+    """Pad node dimension to a static size (invalid nodes isolated)."""
+    g, k = graph.nbr_idx.shape
+    assert pad_to >= g
+    idx = np.full((pad_to, k), -1, np.int32)
+    idx[:g] = graph.nbr_idx
+    dist = np.zeros((pad_to, k), np.float32)
+    dist[:g] = graph.nbr_dist
+    valid = np.zeros((pad_to, k), bool)
+    valid[:g] = graph.nbr_valid
+    ai = np.zeros((pad_to,), np.float32)
+    ai[:g] = graph.avg_intensity
+    return GroundGraph(idx, dist, valid, ai, graph.num_nodes)

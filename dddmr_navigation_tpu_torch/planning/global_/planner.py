@@ -3,7 +3,8 @@ over robots on one shared graph.
 
 Counterpart of ``dddmr_navigation_tpu/planning/global_/planner.py``
 (`GlobalPlanner::makeROSPlan`, `global_planner.cpp:512-544`,
-`getStartGoalID`, `:393-473`, and `getROSPath`, `:313-391`).
+`getStartGoalID`, `:393-473`, and `getROSPath`, `:313-391`);
+``post_smooth_path`` is the JAX package's host numpy function, copied.
 """
 from __future__ import annotations
 
@@ -219,3 +220,59 @@ def path_to_poses(cfg: GlobalPlannerConfig, ground: np.ndarray,
         np.broadcast_to(quats[:n_seg, None], (n_seg, e, 4))[emit_all],
         quats[-1:]])
     return positions.astype(np.float32), quat_rows.astype(np.float32)
+
+
+def post_smooth_path(ground: np.ndarray, map_pts: np.ndarray, path_ids,
+                     inscribed_radius: float = 0.5):
+    """`GlobalPlanner::postSmoothPath` (`global_planner.cpp:233-311`):
+    greedy line-of-sight shortcutting over the node path. A node is kept
+    when any 5%-step interpolated sample along the anchor→node segment
+    (a) has >1 map point within inscribed_radius (obstacle in the way),
+    (b) has <2 ground points within 1.0 m (segment leaves the ground),
+    (c) jumps vertically (planar reach >0.5 m with slope angle >0.349 rad),
+    or (d) exceeds 20 m planar reach; otherwise the node is skipped.
+    Host-side (plan post-processing, replan-rate work, like the reference's
+    unused-but-shipped implementation).
+
+    Returns the smoothed node-id list (first and last always kept).
+    """
+    ids = [int(i) for i in np.asarray(path_ids).ravel()]
+    if len(ids) <= 2:
+        return list(ids)
+    ground = np.asarray(ground, np.float32)
+    map_pts = np.asarray(map_pts, np.float32).reshape(-1, 3)
+    out = [ids[0]]
+    anchor = ground[ids[0]]
+    steps = np.arange(0.05, 0.99, 0.05, dtype=np.float32)
+    for nid in ids[1:-1]:
+        nxt = ground[nid]
+        v = nxt - anchor
+        cand = anchor[None, :] + steps[:, None] * v[None, :]   # (T,3)
+        keep = False
+        # (a) obstacle: strictly more than one map point in radius
+        if len(map_pts):
+            d2 = np.sum((cand[:, None, :] - map_pts[None, :, :]) ** 2, -1)
+            hits = np.sum(d2 <= inscribed_radius ** 2, axis=1)
+            keep |= bool(np.any(hits > 1))
+        # (b) off-ground: fewer than 2 ground points within 1 m
+        d2g = np.sum((cand[:, None, :] - ground[None, :, :]) ** 2, -1)
+        near_g = np.sum(d2g <= 1.0, axis=1)
+        keep |= bool(np.any(near_g < 2))
+        # (c) z jump / (d) overlong reach. Reference quirk preserved
+        # (`global_planner.cpp:294`): asin(dz/dxy) is computed UNclamped,
+        # so dz > dxy yields NaN and `NaN > 0.349` is false — such segments
+        # do NOT trigger the keep. We reproduce that by gating on
+        # dz <= dxy instead of clamping.
+        dxy = steps * np.hypot(v[0], v[1])
+        dz = steps * abs(v[2])
+        with np.errstate(divide="ignore", invalid="ignore"):
+            ratio = dz / np.maximum(dxy, 1e-9)
+            ang = np.where(ratio <= 1.0, np.arcsin(np.minimum(ratio, 1.0)),
+                           np.nan)
+        keep |= bool(np.any((dxy > 0.5) & (ang > 0.349)))
+        keep |= bool(np.any(dxy > 20.0))
+        if keep:
+            out.append(nid)
+            anchor = nxt
+    out.append(ids[-1])
+    return out

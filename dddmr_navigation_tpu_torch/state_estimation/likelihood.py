@@ -326,6 +326,19 @@ def measure_all(ctx: SubmapContext, cfg: MCLConfig, flat_pts, flat_mask,
                    pos_w)
 
 
+def measure_likelihood(ctx: SubmapContext, cfg: MCLConfig, flat_pts,
+                       flat_mask, sharp_pts, sharp_mask, sharp_weight, pos,
+                       quat):
+    """Likelihood and match ratio of ONE particle (the JAX package's
+    per-particle function, which it vmaps into ``measure_all``): feature
+    clouds (F, 3)/(S, 3) in the base frame with masks, sharp_weight (S,),
+    the pose (3,)/(4,). Returns two scalars."""
+    score, ratio = measure_all(
+        ctx, cfg, flat_pts[None], flat_mask[None], sharp_pts[None],
+        sharp_mask[None], sharp_weight[None], pos[None, None],
+        quat[None, None])
+    return score[0, 0], ratio[0, 0]
+
 def measure_all_corr(ctx: SubmapContext, cfg: MCLConfig, flat_pts, flat_mask,
                      sharp_pts, sharp_mask, sharp_weight, pf_pos, pf_quat,
                      pose0_pos, pose0_quat):

@@ -475,9 +475,9 @@ def test_headline_tick0_matches_golden():
 
 
 def test_port_never_imports_jax():
-    """Both entry points run with nothing of JAX and nothing of the JAX
-    package loaded: no such module in ``sys.modules``, and no loaded
-    module's file under ``dddmr_navigation_tpu/``."""
+    """Both entry points run with nothing of JAX (nor flax, nor optax) and
+    nothing of the JAX package loaded: no such module in ``sys.modules``,
+    and no loaded module's file under ``dddmr_navigation_tpu/``."""
     code = ("import os, sys\n"
             "import dddmr_navigation_tpu_torch\n"
             "import dddmr_navigation_tpu_torch.entry\n"
@@ -523,6 +523,17 @@ def test_port_never_imports_jax():
             "import dddmr_navigation_tpu_torch.slam.pose_graph\n"
             "import dddmr_navigation_tpu_torch.slam.pipeline\n"
             "import dddmr_navigation_tpu_torch.slam.editor\n"
+            "import dddmr_navigation_tpu_torch.perception.semantic\n"
+            "import dddmr_navigation_tpu_torch.perception.semantic_data\n"
+            "import dddmr_navigation_tpu_torch.perception.semantic_scene19\n"
+            "import dddmr_navigation_tpu_torch.runtime\n"
+            "import dddmr_navigation_tpu_torch.runtime.actions\n"
+            "import dddmr_navigation_tpu_torch.runtime.checkpoint\n"
+            "import dddmr_navigation_tpu_torch.runtime.tracing\n"
+            "import dddmr_navigation_tpu_torch.runtime.viewer\n"
+            "import dddmr_navigation_tpu_torch.runtime.viewer3d\n"
+            "import dddmr_navigation_tpu_torch.io.rosbag\n"
+            "import dddmr_navigation_tpu_torch.io.native\n"
             "fn, args = dddmr_navigation_tpu_torch.entry.entry('cpu')\n"
             "fn(*args)\n"
             "from dddmr_navigation_tpu_torch import entry as e\n"
@@ -565,8 +576,12 @@ def test_port_never_imports_jax():
             "                                 map_match_iters=2), 2)\n"
             "mc = e.run_mapping_chain(e.make_mapping_session(ssc, 'cpu'), ssc)\n"
             "assert len(mc.keyframes) == 2\n"
+            "r = e.run_semantic_reroute('cpu')\n"
+            "assert r['ok_zone'] and len(r['zone']) > 50\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
+            "             or m in ('flax', 'optax')\n"
+            "             or m.startswith(('flax.', 'optax.'))\n"
             "             or m == 'dddmr_navigation_tpu'\n"
             "             or m.startswith('dddmr_navigation_tpu.'))\n"
             "assert not bad, bad\n"
@@ -595,6 +610,7 @@ def test_entry_points_default_to_cuda():
         init_odom3d)
     from dddmr_navigation_tpu_torch.state_estimation.submaps import (
         PoseGraph, SubmapManager)
+    from dddmr_navigation_tpu_torch.perception.semantic import init_segmenter
     cfg = entry.headline_config(4, 4, 8, 16, 8, 8, 32)
     c3_cfg = entry.config3_config(3, 3, 8, 32, 16, 8, 64, 128, 16)
     ground = flat_ground_map(2, 2, 0.5)
@@ -622,6 +638,13 @@ def test_entry_points_default_to_cuda():
             MCLConfig()).initialize([0.0, 0.0, 0.0]).ground_normal,
         "make_mapping_session": lambda: entry.make_mapping_session(
             ).graph.pos,
+        "init_segmenter": lambda: init_segmenter(32, 32, 3, 8)[1][
+            "Conv_0.bias"],
+        "load_segmenter": lambda: entry.load_segmenter()[1]["Conv_0.bias"],
+        "semantic_scenario": lambda: entry.semantic_scenario(1).params[
+            "Conv_0.bias"],
+        "run_semantic_reroute": lambda: torch.as_tensor(
+            entry.run_semantic_reroute()["field"]),
     }
     have_card = torch.cuda.is_available()
     for name, call in calls.items():

@@ -193,6 +193,24 @@ def test_measure_matches_jax(world, mode):
     assert (np.asarray(want[0]) > 0).any() and (np.asarray(want[1]) > 0.1).any()
 
 
+def test_measure_likelihood_one_particle_matches_jax(world):
+    """The one-particle score the JAX package vmaps, held to JAX's own."""
+    center, pos, quat = particles()
+    flat, fm, sharp, sm = features(world, center)
+    sw = np.random.default_rng(4).uniform(0.5, 2.0, 512).astype(np.float32)
+    cfg = config_from(MCL)
+    for n in range(3):
+        want = jax.jit(lambda p, q: jlk.measure_likelihood(
+            world["jctx"], MCL, flat[0], fm[0], sharp[0], sm[0], sw, p, q))(
+                pos[0, n], quat[0, n])
+        got = tlk.measure_likelihood(
+            world["tctx"], cfg, t(flat[0]), t(fm[0]), t(sharp[0]), t(sm[0]),
+            t(sw), t(pos[0, n]), t(quat[0, n]))
+        assert got[0].shape == () and got[1].shape == ()
+        np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-5,
+                                   atol=1e-6)
+        np.testing.assert_allclose(float(got[1]), float(want[1]), atol=1e-6)
+
 # ---------------------------------------------------------------------------
 # particle-filter steps with JAX's draws
 # ---------------------------------------------------------------------------
