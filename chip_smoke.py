@@ -136,9 +136,10 @@ and a 0.2 m/s zone); any failed check raises:
  20. runs the scenario closed loop on the kernel path and on the plain
      path: equal bit for bit, SUCCESS within 0.6 m of the goal, more than
      0.2 m from the wall, never inside the no-entry zone; times the ticks
-     (median, p95, p99) and their stages (perception, depth,
-     composition+lethal, plan manager, local tick, FSM) by CUDA events,
-     and reads the peak memory of the session ticks;
+     (median, p95, p99) by CUDA events and their stages (perception,
+     depth, composition+lethal, plan manager, local tick, FSM) by the
+     tracing recorder's stage spans, and reads the peak memory of the
+     session ticks;
  21. as step 3, on the arguments of the align-heading ticks 3 and 4 (both
      generators run), tick 4's collision calls with a ring that every
      rollout hits: the simple call (1, 66, 64, K 2,048), the rotate call
@@ -202,8 +203,9 @@ kernel); any failed check raises:
      load → ``add_icp_edge`` on the first loop pair → ``optimize`` →
      ``save``, read back equal;
  33. timing of step 31 by CUDA events: per scan median, p95 and p99
-     against the 10 Hz sweep (100 ms), by stage (frontend, odometry, map
-     refine, keyframe, loop closure); host syncs by call site in a
+     against the 10 Hz sweep (100 ms); by stage (frontend, odometry, map
+     refine, keyframe, loop closure) from the tracing recorder's stage
+     spans on the host clock; host syncs by call site in a
      replayed plain, keyframe and loop-closure scan, and a profile (device
      busy, kernels a scan, top device operations) of the plain and the
      loop-closure one; peak memory;
@@ -1570,36 +1572,33 @@ def session_phase(np, torch, dev, entry, ops, kernels, card):
     sess.close()
 
     # 20. closed loop on the kernel path and on the plain path; the kernel
-    # path's ticks timed by CUDA events, its stages by the stage hook
+    # path's ticks timed by CUDA events, its stages by the tracing
+    # recorder's stage spans (host clock)
+    from dddmr_navigation_tpu_torch.runtime import tracing
+
     def closed_loop(threaded=False, timed=False):
         s_ = entry.make_session(sc, dev, threaded_plan_manager=threaded)
-        events, stages = [], []
+        events = []
         if timed:
             tick = s_.tick
 
             def timed_tick(*a, **k):
                 e0 = torch.cuda.Event(enable_timing=True)
                 e1 = torch.cuda.Event(enable_timing=True)
-                marks = []
-
-                def stage(name):
-                    ev = torch.cuda.Event(enable_timing=True)
-                    ev.record()
-                    marks.append((name, ev))
-                s_.driver.stage = stage
                 e0.record()
                 out = tick(*a, **k)
                 e1.record()
-                s_.driver.stage = None
                 events.append((e0, e1))
-                stages.append((marks, e1))
                 return out
             s_.tick = timed_tick
-        try:
-            ch = entry.run_session_chain(s_, sc, entry.SESSION_TICKS)
-        finally:
-            s_.close()
+        with (tracing.recording() if timed
+              else contextlib.nullcontext([])) as kept:
+            try:
+                ch = entry.run_session_chain(s_, sc, entry.SESSION_TICKS)
+            finally:
+                s_.close()
         torch.cuda.synchronize()
+        stages = tracing.stage_seconds(kept, "tick")
         return ch, s_, events, stages
 
     held = torch.cuda.memory_allocated()
@@ -1650,11 +1649,7 @@ def session_phase(np, torch, dev, entry, ops, kernels, card):
     check(entered == 0, "session entered the no-entry zone")
 
     ticks_ms = np.asarray([a.elapsed_time(b) for a, b in events])
-    per_stage = {}
-    for marks, end in stages:
-        bounds = marks + [("end", end)]
-        for (name, a), (_, b) in zip(bounds, bounds[1:]):
-            per_stage.setdefault(name, []).append(a.elapsed_time(b))
+    per_stage = {k: [1e3 * x for x in v] for k, v in stages.items()}
     per_tick_launches = {k: v / n for k, v in launches.items()}
     print(f"session tick (kernel path, closed loop, n={ticks_ms.size}): "
           f"median {float(np.median(ticks_ms))!r} ms, p95 "
@@ -1665,7 +1660,7 @@ def session_phase(np, torch, dev, entry, ops, kernels, card):
           f"{tick_peak / 2**20:.1f} MiB ({held / 2**20:.1f} MiB held before "
           f"them); card {card}")
     print("session stages, median (mean, p99) ms per tick where run "
-          "(CUDA events at the stage hook): "
+          "(host clock, the tracing recorder's stage spans): "
           + "; ".join(f"{k} {float(np.median(v)):.3f} ({float(np.mean(v)):.3f}"
                       f", {float(np.percentile(v, 99)):.3f}) over {len(v)}"
                       for k, v in per_stage.items()))
@@ -2460,7 +2455,8 @@ def slam_phase(np, torch, dev, entry, card):
           f"{float(scan_ms.max())!r} ms; {over} scans over the 10 Hz sweep's "
           f"100 ms; peak device memory {peak / 2**20:.1f} MiB "
           f"({held / 2**20:.1f} MiB held before); card {card}")
-    print("SLAM stages, median (mean, p99, max) ms where run: " + "; ".join(
+    print("SLAM stages (host clock, the tracing recorder's stage spans), "
+          "median (mean, p99, max) ms where run: " + "; ".join(
         f"{k} {1e3 * float(np.median(v)):.3f} ({1e3 * float(np.mean(v)):.3f}"
         f", {1e3 * float(np.percentile(v, 99)):.3f}, "
         f"{1e3 * float(np.max(v)):.3f}) over {len(v)}"

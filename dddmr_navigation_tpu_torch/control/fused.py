@@ -50,6 +50,7 @@ from dddmr_navigation_tpu_torch.planning.global_.wavefront import (
 from dddmr_navigation_tpu_torch.planning.local.planner import (
     GlobalPlan, compute_velocity_command)
 from dddmr_navigation_tpu_torch.planning.global_.graph import build_ground_graph
+from dddmr_navigation_tpu_torch.runtime import tracing
 
 
 class FusedMap(NamedTuple):
@@ -374,35 +375,38 @@ def fused_prepare(nav_cfg: NavigationConfig, fmap: FusedMap,
     or a (B,) bool tensor."""
     p = nav_cfg.perception
     dev = robot_pos.device
-    composed = min_dgraph(fmap.static_dgraph, marking.dgraph)
-    if depth is not None:
-        composed = min_dgraph(composed, depth[0].dgraph)
-    if fmap.no_entry_field is not None:
-        on = torch.as_tensor(no_entry_enabled, device=dev).reshape(-1, 1)
-        composed = min_dgraph(composed, torch.where(
-            on, fmap.no_entry_field, p.max_obstacle_distance))
-    cap = torch.as_tensor(allowed_max_speed, dtype=torch.float32,
-                          device=dev).expand(robot_pos.shape[0])
-    if fmap.speed_zone_pts is not None:
-        zone = speed_limit_at(robot_pos, fmap.speed_zone_pts,
-                              fmap.speed_zone_valid, fmap.speed_zone_speed,
-                              fma=True)
-        cap = torch.where(zone > 0.0, torch.where(
-            cap > 0.0, torch.minimum(cap, zone), zone), cap)
-    if nav_cfg.global_planner.max_long_edges > 0:
-        lethal_pts, lethal_valid = lethal_cloud_from_dgraph(
-            fmap.ground, fmap.ground_valid & fmap.los_relevant, composed,
+    with tracing.span("perceive.compose"):
+        composed = min_dgraph(fmap.static_dgraph, marking.dgraph)
+        if depth is not None:
+            composed = min_dgraph(composed, depth[0].dgraph)
+        if fmap.no_entry_field is not None:
+            on = torch.as_tensor(no_entry_enabled, device=dev).reshape(-1, 1)
+            composed = min_dgraph(composed, torch.where(
+                on, fmap.no_entry_field, p.max_obstacle_distance))
+        cap = torch.as_tensor(allowed_max_speed, dtype=torch.float32,
+                              device=dev).expand(robot_pos.shape[0])
+        if fmap.speed_zone_pts is not None:
+            zone = speed_limit_at(robot_pos, fmap.speed_zone_pts,
+                                  fmap.speed_zone_valid,
+                                  fmap.speed_zone_speed, fma=True)
+            cap = torch.where(zone > 0.0, torch.where(
+                cap > 0.0, torch.minimum(cap, zone), zone), cap)
+        if nav_cfg.global_planner.max_long_edges > 0:
+            lethal_pts, lethal_valid = lethal_cloud_from_dgraph(
+                fmap.ground, fmap.ground_valid & fmap.los_relevant, composed,
+                inscribed_radius=p.inscribed_radius,
+                max_lethal=nav_cfg.global_planner.max_lethal_points)
+        else:
+            lethal_pts = lethal_valid = None
+    with tracing.span("plan.prepare"):
+        prep = plan_prepare(
+            nav_cfg.global_planner, fmap.nbr_idx, fmap.nbr_dist,
+            fmap.nbr_valid, fmap.ground, fmap.ground_valid, composed,
+            fmap.node_weight, robot_pos, goal_pos,
             inscribed_radius=p.inscribed_radius,
-            max_lethal=nav_cfg.global_planner.max_lethal_points)
-    else:
-        lethal_pts = lethal_valid = None
-    prep = plan_prepare(
-        nav_cfg.global_planner, fmap.nbr_idx, fmap.nbr_dist, fmap.nbr_valid,
-        fmap.ground, fmap.ground_valid, composed, fmap.node_weight,
-        robot_pos, goal_pos, inscribed_radius=p.inscribed_radius,
-        inflation_descending_rate=p.inflation_descending_rate,
-        lethal_pts=lethal_pts, lethal_valid=lethal_valid,
-        warm_dist=state.wf_dist, warm_goal_idx=state.wf_goal_idx)
+            inflation_descending_rate=p.inflation_descending_rate,
+            lethal_pts=lethal_pts, lethal_valid=lethal_valid,
+            warm_dist=state.wf_dist, warm_goal_idx=state.wf_goal_idx)
     d_marking, d_buffer, d_latest = depth if depth is not None else (
         None, None, None)
     return FusedPrePlan(marking=marking, composed=composed,
@@ -422,13 +426,15 @@ def fused_pre_plan(nav_cfg: NavigationConfig, spec: VoxelSpec,
     """Everything before the relaxation: :func:`fused_perceive`, the depth
     layer (:func:`fused_depth`, when the state has one), then
     :func:`fused_prepare`."""
-    marking, scan_global = fused_perceive(
-        spec, ri_spec, params, fmap, state, scan_sensor, scan_mask,
-        robot_pos, robot_quat, sensor_offset)
-    depth = None
-    if state.depth_marking is not None:
-        depth = fused_depth(spec, params, fmap, state, robot_pos, robot_quat,
-                            depth_cam, depth_frames, now, depth_keep_time)
+    with tracing.span("perceive.mark_clear"):
+        marking, scan_global = fused_perceive(
+            spec, ri_spec, params, fmap, state, scan_sensor, scan_mask,
+            robot_pos, robot_quat, sensor_offset)
+        depth = None
+        if state.depth_marking is not None:
+            depth = fused_depth(spec, params, fmap, state, robot_pos,
+                                robot_quat, depth_cam, depth_frames, now,
+                                depth_keep_time)
     return fused_prepare(nav_cfg, fmap, state, marking, scan_global,
                          robot_pos, goal_pos, allowed_max_speed, depth,
                          no_entry_enabled)
@@ -441,28 +447,30 @@ def fused_local(nav_cfg: NavigationConfig, generator: str,
     """This tick's observation (the scan and the latest depth frames,
     `stacked_perception.cpp:128-140`), prune → rollouts → critics → argmin
     on ``plan``, and the new state. Returns (FusedState, FusedOut)."""
-    agg_pts, agg_mask = pre.scan_global, scan_mask
-    if pre.depth_latest is not None:
-        b = agg_pts.shape[0]
-        agg_pts = torch.cat([agg_pts,
-                             pre.depth_latest.points.reshape(b, -1, 3)], 1)
-        agg_mask = torch.cat([agg_mask,
-                              pre.depth_latest.mask.reshape(b, -1)], 1)
-    obs, obs_mask = device_observation(
-        agg_pts, agg_mask, nav_cfg.local_planner.max_obstacle_points)
-    cmd = compute_velocity_command(
-        nav_cfg.local_planner, plan, robot_pos, robot_quat, v_now, w_now,
-        obs, obs_mask, allowed_max_speed=pre.allowed_max_speed,
-        generator=generator)
-    out = FusedOut(vx=cmd.vx, wz=cmd.wz, state=cmd.state,
-                   best_cost=cmd.best_cost, plan=plan, plan_ok=res.ok,
-                   composed_dgraph=pre.composed, obs=obs, obs_mask=obs_mask,
-                   wf_iters=res.iters, best_index=cmd.best_index,
-                   costs=cmd.costs)
-    return FusedState(marking=pre.marking, wf_dist=res.dist_carry,
-                      wf_goal_idx=res.goal_idx, wf_stall=wf_stall,
-                      depth_marking=pre.depth_marking,
-                      depth_buffer=pre.depth_buffer), out
+    with tracing.span("local"):
+        agg_pts, agg_mask = pre.scan_global, scan_mask
+        if pre.depth_latest is not None:
+            b = agg_pts.shape[0]
+            agg_pts = torch.cat(
+                [agg_pts, pre.depth_latest.points.reshape(b, -1, 3)], 1)
+            agg_mask = torch.cat([agg_mask,
+                                  pre.depth_latest.mask.reshape(b, -1)], 1)
+        obs, obs_mask = device_observation(
+            agg_pts, agg_mask, nav_cfg.local_planner.max_obstacle_points)
+        cmd = compute_velocity_command(
+            nav_cfg.local_planner, plan, robot_pos, robot_quat, v_now, w_now,
+            obs, obs_mask, allowed_max_speed=pre.allowed_max_speed,
+            generator=generator)
+        out = FusedOut(vx=cmd.vx, wz=cmd.wz, state=cmd.state,
+                       best_cost=cmd.best_cost, plan=plan, plan_ok=res.ok,
+                       composed_dgraph=pre.composed, obs=obs,
+                       obs_mask=obs_mask,
+                       wf_iters=res.iters, best_index=cmd.best_index,
+                       costs=cmd.costs)
+        return FusedState(marking=pre.marking, wf_dist=res.dist_carry,
+                          wf_goal_idx=res.goal_idx, wf_stall=wf_stall,
+                          depth_marking=pre.depth_marking,
+                          depth_buffer=pre.depth_buffer), out
 
 
 def fused_post_plan(nav_cfg: NavigationConfig, generator: str,
@@ -471,8 +479,9 @@ def fused_post_plan(nav_cfg: NavigationConfig, generator: str,
                     wf_stall) -> tuple:
     """Path interpolation, then :func:`fused_local`. Returns (FusedState,
     FusedOut)."""
-    plan = interpolate_path_device(
-        fmap.ground, res, max_plan_len=nav_cfg.local_planner.max_plan_len)
+    with tracing.span("plan.interpolate"):
+        plan = interpolate_path_device(
+            fmap.ground, res, max_plan_len=nav_cfg.local_planner.max_plan_len)
     return fused_local(nav_cfg, generator, pre, res, plan, scan_mask,
                        robot_pos, robot_quat, v_now, w_now, wf_stall)
 
@@ -494,10 +503,11 @@ def fused_relax(nav_cfg: NavigationConfig, fmap: FusedMap,
     iters (B,))."""
     gp = nav_cfg.global_planner
     budget = gp.relax_iters_per_tick
-    return relax(gp, fmap.nbr_idx, fmap.nbr_dist, fmap.avg_intensity,
-                 fmap.ground, pre.prep,
-                 budget if budget > 0 else gp.max_relax_iters,
-                 fmap.wf_az, fmap.wf_bins)
+    with tracing.span("plan.relax"):
+        return relax(gp, fmap.nbr_idx, fmap.nbr_dist, fmap.avg_intensity,
+                     fmap.ground, pre.prep,
+                     budget if budget > 0 else gp.max_relax_iters,
+                     fmap.wf_az, fmap.wf_bins)
 
 
 def fused_finish(nav_cfg: NavigationConfig, fmap: FusedMap,
@@ -506,10 +516,11 @@ def fused_finish(nav_cfg: NavigationConfig, fmap: FusedMap,
     counter)."""
     gp = nav_cfg.global_planner
     stall_reset, wf_stall = budget_stall_update(gp, state.wf_stall, iters)
-    res = plan_finish(gp, fmap.nbr_idx, fmap.nbr_dist, fmap.ground,
-                      pre.prep, dist, iters,
-                      turn_pen=fmap.turn_pen if gp.turning_weight > 0.0
-                      else None, wf_bins=bins, stall_reset=stall_reset)
+    with tracing.span("plan.extract"):
+        res = plan_finish(gp, fmap.nbr_idx, fmap.nbr_dist, fmap.ground,
+                          pre.prep, dist, iters,
+                          turn_pen=fmap.turn_pen if gp.turning_weight > 0.0
+                          else None, wf_bins=bins, stall_reset=stall_reset)
     return res, wf_stall
 
 
@@ -528,17 +539,21 @@ def fused_tick(nav_cfg: NavigationConfig, spec: VoxelSpec,
     :func:`fused_depth`) at clock ``now``.
 
     Composed as :func:`fused_pre_plan` → :func:`fused_relax` →
-    :func:`fused_finish` → :func:`fused_post_plan`. Returns (FusedState,
-    FusedOut)."""
-    pre = fused_pre_plan(nav_cfg, spec, ri_spec, params, fmap, state,
-                         scan_sensor, scan_mask, robot_pos, robot_quat,
-                         sensor_offset, goal_pos, allowed_max_speed,
-                         depth_cam, depth_frames, now, depth_keep_time,
-                         no_entry_enabled)
-    dist, bins, iters = fused_relax(nav_cfg, fmap, pre)
-    res, wf_stall = fused_finish(nav_cfg, fmap, pre, state, dist, bins, iters)
-    return fused_post_plan(nav_cfg, generator, fmap, pre, res, scan_mask,
-                           robot_pos, robot_quat, v_now, w_now, wf_stall)
+    :func:`fused_finish` → :func:`fused_post_plan`, recorded as a
+    ``tick`` span and its layers' spans (``runtime/tracing.py``). Returns
+    (FusedState, FusedOut)."""
+    with tracing.span("tick"):
+        pre = fused_pre_plan(nav_cfg, spec, ri_spec, params, fmap, state,
+                             scan_sensor, scan_mask, robot_pos, robot_quat,
+                             sensor_offset, goal_pos, allowed_max_speed,
+                             depth_cam, depth_frames, now, depth_keep_time,
+                             no_entry_enabled)
+        dist, bins, iters = fused_relax(nav_cfg, fmap, pre)
+        res, wf_stall = fused_finish(nav_cfg, fmap, pre, state, dist, bins,
+                                     iters)
+        return fused_post_plan(nav_cfg, generator, fmap, pre, res,
+                               scan_mask, robot_pos, robot_quat, v_now,
+                               w_now, wf_stall)
 
 
 def make_fused_tick(nav_cfg: NavigationConfig,

@@ -20,8 +20,11 @@ The device state is batched with B = 1. Rounding follows the JAX call
 sites: the scan transform, ``speed_limit_at`` and ``no_entry_dgraph`` run
 eagerly there, so the port uses their plain forms; the perception, depth
 and lethal-cloud stages are jitted there, and the port's functions round
-as those programs do. ``driver.stage``, when set, is called with a stage
-name as each stage of the session's tick begins (a timing hook).
+as those programs do. While the tracing recorder is on
+(``runtime/tracing.py``), a tick is a ``tick`` span and each of its
+stages (perception, depth, composition+lethal, then
+:class:`MoveBaseDriver`'s plan manager, local tick and FSM) a stage span
+inside it.
 """
 from __future__ import annotations
 
@@ -48,6 +51,7 @@ from dddmr_navigation_tpu_torch.planning.global_.los import (
     lethal_cloud_from_dgraph)
 from dddmr_navigation_tpu_torch.planning.local.planner import (
     make_global_plan)
+from dddmr_navigation_tpu_torch.runtime import tracing
 from dddmr_navigation_tpu_torch.runtime.watchdog import FreshnessGate
 
 
@@ -261,8 +265,14 @@ class NavigationSession:
         (the freshness gate decays toward PERCEPTION_MALFUNCTION). tf_age:
         seconds since the localization TF was updated (> 2 s ⇒ TF_FAIL).
         Returns (vx, wz, decision, done, succeeded)."""
+        with tracing.span("tick"):
+            return self._tick(scan_pts, scan_mask, robot_pos, robot_quat, v,
+                              w, now, tf_age, scan_is_global)
+
+    def _tick(self, scan_pts, scan_mask, robot_pos, robot_quat, v, w, now,
+              tf_age, scan_is_global):
         dev = self.device
-        self.driver._stage("perception")
+        tracing.stage("perception")
         robot_pos = np.asarray(robot_pos, np.float32)
         robot_quat = np.asarray(robot_quat, np.float32)
         scan_pts = np.asarray(scan_pts, np.float32)
@@ -303,14 +313,14 @@ class NavigationSession:
 
         fields = [self.static_dgraph, self.marking.dgraph]
         if self.n_depth_cameras > 0:
-            self.driver._stage("depth")
+            tracing.stage("depth")
             self.depth_marking, _ = depth_layer_update(
                 self.spec, self.params, self.depth_cam, self.depth_marking,
                 self.depth_buffer, torch.full((), now, device=dev),
                 self.depth_keep_time, self.map_ctx, pos_t, quat_t)
             fields.append(self.depth_marking.dgraph)
 
-        self.driver._stage("composition+lethal")
+        tracing.stage("composition+lethal")
         if self.no_entry_enabled:
             fields.append(self.no_entry_field)
         self.composed_dgraph = min_dgraph(*fields)[0]

@@ -92,6 +92,7 @@ from dddmr_navigation_tpu_torch.perception.semantic import (
     segmentation_to_pointcloud)
 from dddmr_navigation_tpu_torch.perception.semantic_data import (
     CameraIntrinsics, camera_to_world, render_scene)
+from dddmr_navigation_tpu_torch.runtime import tracing
 
 
 def build_inputs(device):
@@ -1155,8 +1156,8 @@ class MappingChain(NamedTuple):
     keyframes: list           # keyframe count after each scan
     edges: list               # edge count after each scan
     loop_closures: list       # the session's (i, j, fitness) at the end
-    scan_s: list              # seconds a scan
-    stage_s: dict             # stage name → seconds, one per run of it
+    scan_s: list              # seconds a scan, by the chain's clock
+    stage_s: dict             # stage name → host seconds, one per run of it
 
 
 def run_mapping_chain(sess, sc: SlamScenario, scans_of=None,
@@ -1164,31 +1165,26 @@ def run_mapping_chain(sess, sc: SlamScenario, scans_of=None,
                       elapsed=lambda a, b: b - a) -> MappingChain:
     """The closed loop: the scenario's scans through ``sess.process_scan``
     (``scans_of(t)`` gives scan t as (points, mask), :func:`slam_scan`
-    when not given). Each scan, and each stage from its start to the
-    next's (the last to the scan's end), is timed by ``clock()`` marks
-    (host time by default; CUDA events on the card), read with
-    ``elapsed(a, b)`` → seconds once the run is over."""
+    when not given). Each scan is timed by ``clock()`` marks (host time by
+    default; CUDA events on the card), read with ``elapsed(a, b)`` →
+    seconds once the run is over. Each stage, from its start to the
+    next's (the last to the scan's end), is timed on the host clock
+    (``time.perf_counter_ns``), whatever ``clock`` is, by the tracing
+    recorder's stage spans (a :func:`tracing.recording` block: the
+    recorder keeps none of them after the run)."""
     pos, quat, kfs, edges, marks = [], [], [], [], []
-    stage = []
-    sess.stage = lambda name: stage.append((name, clock()))
-    try:
+    with tracing.recording() as kept:
         for t in range(sc.scans):
             pts, mask = scans_of(t) if scans_of else slam_scan(sc, t)
-            stage.clear()
             start = clock()
             p, q = sess.process_scan(pts, mask)
-            marks.append((start, list(stage), clock()))
+            marks.append((start, clock()))
             pos.append(np.array(p, np.float32))
             quat.append(np.array(q, np.float32))
             kfs.append(sess.n_keyframes)
             edges.append(sess.n_edges)
-    finally:
-        sess.stage = None
-    scan_s, stage_s = [], {}
-    for start, st, end in marks:
-        scan_s.append(elapsed(start, end))
-        for (name, a), (_, b) in zip(st, st[1:] + [(None, end)]):
-            stage_s.setdefault(name, []).append(elapsed(a, b))
+    scan_s = [elapsed(a, b) for a, b in marks]
+    stage_s = tracing.stage_seconds(kept, "scan")
     return MappingChain(np.stack(pos), np.stack(quat), kfs, edges,
                         list(sess.loop_closures), scan_s, stage_s)
 

@@ -9,11 +9,14 @@ the flags once per block. The operators are idempotent at a fixpoint, so
 the iterations a converged robot sits through change nothing, and a robot
 that is done is frozen all the same (it may be done at ``max_iters``
 without having converged). ``iters`` then equals the JAX loop's count
-exactly.
+exactly. Each read of the flags counts as one ``host_reads`` of the
+tracing recorder while it is on.
 """
 from __future__ import annotations
 
 import torch
+
+from dddmr_navigation_tpu_torch.runtime import tracing
 
 
 def iterate_to_fixpoint(step, x, max_iters: int, block: int = 16):
@@ -37,6 +40,8 @@ def iterate_to_fixpoint(step, x, max_iters: int, block: int = 16):
             x = torch.where(active[expand], new, x)
             done = done | ~changed
             n += 1
+        if tracing.on():
+            tracing.count("host_reads")
         if bool(done.all()):
             break
     return x, iters

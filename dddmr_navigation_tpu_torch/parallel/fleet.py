@@ -38,6 +38,7 @@ from dddmr_navigation_tpu_torch.planning.local.planner import (
     GlobalPlan, PlannerState, VelocityCommand, compute_velocity_command,
     goal_heading_deviation, goal_reached, initial_heading_deviation)
 from dddmr_navigation_tpu_torch.rounding import fma_dot, fma_norm
+from dddmr_navigation_tpu_torch.runtime import tracing
 from dddmr_navigation_tpu_torch.state_estimation.mcl import (
     init_mcl, mcl_update)
 
@@ -277,12 +278,15 @@ def fleet_extract(nav_cfg, fmap, state, pre, dist_r, iters):
     gp = nav_cfg.global_planner
     stall_reset, wf_stall = budget_stall_update(gp, state.fused.wf_stall,
                                                 iters)
-    res = fleet_plan_finish(
-        gp, fmap.nbr_idx, fmap.nbr_dist, fmap.ground, pre.prep, dist_r,
-        iters, turn_pen=fmap.turn_pen if gp.turning_weight > 0.0 else None,
-        wf_bins=fmap.wf_bins, stall_reset=stall_reset)
-    plans = fleet_interpolate_path_device(
-        fmap.ground, res, max_plan_len=nav_cfg.local_planner.max_plan_len)
+    with tracing.span("plan.extract"):
+        res = fleet_plan_finish(
+            gp, fmap.nbr_idx, fmap.nbr_dist, fmap.ground, pre.prep, dist_r,
+            iters, turn_pen=fmap.turn_pen if gp.turning_weight > 0.0
+            else None, wf_bins=fmap.wf_bins, stall_reset=stall_reset)
+    with tracing.span("plan.interpolate"):
+        plans = fleet_interpolate_path_device(
+            fmap.ground, res,
+            max_plan_len=nav_cfg.local_planner.max_plan_len)
     return res, wf_stall, plans
 
 
@@ -396,24 +400,32 @@ def fleet_full_tick(nav_cfg, mb_cfg, spec, ri_spec, params, fmap, state,
     ``now`` and ``dt`` are () f32 tensors (or floats), ``scans`` (B, N, 3)
     in the sensor frame, ``goals`` (B, 3).
 
+    The tick is recorded as a ``tick`` span with its layers' spans
+    (``runtime/tracing.py``).
+
     Returns (new FleetFullState, diag dict of (B,) tensors)."""
-    dev = state.pos.device
-    now = torch.as_tensor(now, dtype=torch.float32, device=dev)
-    dt = torch.as_tensor(dt, dtype=torch.float32, device=dev)
-    loc = fleet_localize(
-        state, dt, mcl_cfg=mcl_cfg, submap_ctx=submap_ctx,
-        odom_drift_pos=odom_drift_pos, odom_drift_yaw=odom_drift_yaw,
-        feature_map_pts=feature_map_pts,
-        feature_ground_pts=feature_ground_pts, mcl_draws=mcl_draws,
-        feature_keys_=feature_keys_)
-    pre = fleet_perceive(nav_cfg, spec, ri_spec, params, fmap, state, loc,
-                         scans, scan_masks, sensor_offset, goals)
-    dist_r, iters = fleet_relax(nav_cfg, fmap, pre)
-    res, wf_stall, plans = fleet_extract(nav_cfg, fmap, state, pre, dist_r,
-                                         iters)
-    fused2, out = fleet_simple_local(nav_cfg, state, loc, pre, res, plans,
-                                     scan_masks, wf_stall)
-    return fleet_decide(nav_cfg, mb_cfg, state, loc, fused2, out, now, dt)
+    with tracing.span("tick"):
+        dev = state.pos.device
+        now = torch.as_tensor(now, dtype=torch.float32, device=dev)
+        dt = torch.as_tensor(dt, dtype=torch.float32, device=dev)
+        with tracing.span("localize"):
+            loc = fleet_localize(
+                state, dt, mcl_cfg=mcl_cfg, submap_ctx=submap_ctx,
+                odom_drift_pos=odom_drift_pos, odom_drift_yaw=odom_drift_yaw,
+                feature_map_pts=feature_map_pts,
+                feature_ground_pts=feature_ground_pts, mcl_draws=mcl_draws,
+                feature_keys_=feature_keys_)
+        pre = fleet_perceive(nav_cfg, spec, ri_spec, params, fmap, state,
+                             loc, scans, scan_masks, sensor_offset, goals)
+        with tracing.span("plan.relax"):
+            dist_r, iters = fleet_relax(nav_cfg, fmap, pre)
+        res, wf_stall, plans = fleet_extract(nav_cfg, fmap, state, pre,
+                                             dist_r, iters)
+        fused2, out = fleet_simple_local(nav_cfg, state, loc, pre, res,
+                                         plans, scan_masks, wf_stall)
+        with tracing.span("decide"):
+            return fleet_decide(nav_cfg, mb_cfg, state, loc, fused2, out,
+                                now, dt)
 
 
 # ---------------------------------------------------------------------------

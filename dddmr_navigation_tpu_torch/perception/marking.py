@@ -31,6 +31,7 @@ from dddmr_navigation_tpu_torch.perception.clustering import (
     label_components, label_components_pooled, cluster_table)
 from dddmr_navigation_tpu_torch.perception.static_map import (
     MapContext, distance_to_ground, near_static)
+from dddmr_navigation_tpu_torch.runtime import tracing
 
 
 class MarkingParams(NamedTuple):
@@ -244,6 +245,10 @@ def update_dgraph(spec: VoxelSpec, params: MarkingParams, grid, origin,
     flat = grid.reshape(b, -1).bool()
     mark_idx = first_k_true_indices(flat, params.max_marked_voxels)
     mark_valid = mark_idx >= 0
+    if tracing.on():
+        # marked cells seen, and those the cap keeps
+        tracing.count_device("marked_cells", flat.sum())
+        tracing.count_device("marked_kept", mark_valid.sum())
     mpts = cell_to_world(spec, _cells_of(spec, torch.clamp(mark_idx, min=0),
                                          origin))                  # (B, k, 3)
 

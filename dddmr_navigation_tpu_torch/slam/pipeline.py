@@ -21,17 +21,18 @@ the port runs it on CPU tensors with the same plain rounding. Artifacts
 save in the reference's pose-graph directory format through the port's
 ``state_estimation.submaps.write_pose_graph``.
 
-``stage``, when set, is called with a stage name as each stage of
-:meth:`MappingSession.process_scan` begins ("frontend", "odometry",
-"map refine", "keyframe", "loop closure"): a timing hook. ``last_scan``
-holds what the last processed scan's stages computed (its features, the
-odometry and refined poses, the keyframe decision, the loop candidate, the
-ICP result and the optimized graph), for checks against a recorded run.
+While the tracing recorder is on (``runtime/tracing.py``), a processed
+scan is a ``scan`` span and each of its stages ("frontend", "odometry",
+"map refine", "keyframe", "loop closure") a stage span inside it.
+``last_scan`` holds what the last processed scan's stages computed (its
+features, the odometry and refined poses, the keyframe decision, the loop
+candidate, the ICP result and the optimized graph), for checks against a
+recorded run.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -41,6 +42,7 @@ from dddmr_navigation_tpu_torch.geometry import (
     quat_conjugate, quat_multiply, quat_normalize, quat_rotate)
 from dddmr_navigation_tpu_torch.io.maps import voxel_downsample
 from dddmr_navigation_tpu_torch.rounding import asin_xla, atan2_xla
+from dddmr_navigation_tpu_torch.runtime import tracing
 from dddmr_navigation_tpu_torch.slam import pose_graph as pg
 from dddmr_navigation_tpu_torch.slam.features import (
     FeatureSet, extract_features)
@@ -139,7 +141,6 @@ class MappingSession:
     graph: Optional[pg.PoseGraphArrays] = None
     loop_closures: list = field(default_factory=list)
     paused: bool = False
-    stage: Optional[Callable[[str], None]] = None
     last_scan: dict = field(default_factory=dict)
     _submap: Optional[tuple] = None
 
@@ -148,10 +149,6 @@ class MappingSession:
         if self.graph is None:
             self.graph = pg.empty_graph(self.cfg.max_keyframes,
                                         self.cfg.max_edges, self.device)
-
-    def _stage(self, name: str):
-        if self.stage is not None:
-            self.stage(name)
 
     def _t(self, x):
         """A host array as an f32 tensor on the session's device."""
@@ -219,22 +216,26 @@ class MappingSession:
     def process_scan(self, points, mask):
         """Feed one sweep (sensor frame; array-likes or tensors). Returns
         the current map pose (host numpy)."""
+        with tracing.span("scan"):
+            return self._process_scan(points, mask)
+
+    def _process_scan(self, points, mask):
         if self.paused:
             return self.cur_pos, self.cur_quat
         points = torch.as_tensor(points, dtype=torch.float32,
                                  device=self.device)
         mask = torch.as_tensor(mask, dtype=torch.bool, device=self.device)
-        self._stage("frontend")
+        tracing.stage("frontend")
         feats = frontend(self.cfg, points, mask)
         last = self.last_scan = {"feats": feats, "keyframe": False}
 
         if self.n_keyframes == 0:
-            self._stage("keyframe")
+            tracing.stage("keyframe")
             last["keyframe"] = True
             self._add_keyframe(feats, scan=(points, mask))
             return self.cur_pos, self.cur_quat
 
-        self._stage("odometry")
+        tracing.stage("odometry")
         ref_i = self.n_keyframes - 1
         ref_pos, ref_quat = self._kf_pose(ref_i)
         init_p, init_q = _rel(ref_pos, ref_quat, self.cur_pos, self.cur_quat)
@@ -250,7 +251,7 @@ class MappingSession:
 
         # scan-to-map refinement vs the accumulated submap
         if self._submap is not None:
-            self._stage("map refine")
+            tracing.stage("map refine")
             mpos, mquat, _ = map_refine(
                 self.cfg, feats, *self._submap, self._t(self.cur_pos),
                 self._t(self.cur_quat))
@@ -259,11 +260,11 @@ class MappingSession:
             last["refined"] = (self.cur_pos, self.cur_quat)
 
         if self._keyframe_due(ref_pos, ref_quat):
-            self._stage("keyframe")
+            tracing.stage("keyframe")
             last["keyframe"] = True
             self._add_keyframe(feats, parent=ref_i, scan=(points, mask))
             if self.cfg.enable_loop_closure:
-                self._stage("loop closure")
+                tracing.stage("loop closure")
                 self._try_loop_closure()
         return self.cur_pos, self.cur_quat
 
