@@ -243,6 +243,17 @@ convolutions run in cuDNN here); any failed check raises:
      original does) and ``runtime.tracing.trace`` writing a trace with the
      card's kernels; the phase's wall time.
 
+Then the mark/clear graph phase (``entry.mark_clear_scenario``: robots
+driving past two boxes on a 4 × 4 m floor, a 32 × 32 × 16 window, 12
+ticks); any failed check raises:
+ 41. for one robot clustering on the full lattice and four on the pooled
+     one, ``perception_update`` (one CUDA graph a tick) against its eager
+     body from the same state at every tick: grid, origin, dGraph and
+     clear offset equal bit for bit; a state kept from a tick unchanged
+     by the next; one capture and 11 replays, in the graph's counts and
+     the recorder's; the recorder's marked-cell counters equal to the
+     eager body's; a new map of equal tables captures a new graph.
+
 The line before the last is one JSON object with each kernel's route,
 source, launches, error, times and bound: ``launches`` counts the five
 kernel phases' chains (each counter set to 0 just before its chain and
@@ -821,6 +832,7 @@ def main():
     localization_phase(np, torch, dev, entry, card)
     slam_phase(np, torch, dev, entry, card)
     semantic_phase(np, torch, dev, entry, card)
+    mark_clear_graph_phase(torch, dev, entry)
 
     print(card)
     out = []
@@ -2660,6 +2672,34 @@ def semantic_phase(np, torch, dev, entry, card):
         check(kernels > 0, "the trace recorded no device kernel")
     print(f"semantic phase: {time.perf_counter() - t_phase:.1f} s wall; card "
           f"{card}", flush=True)
+
+
+def mark_clear_graph_phase(torch, dev, entry):
+    """Step 41: the mark/clear graph against the eager step."""
+    from dddmr_navigation_tpu_torch.perception.static_map import (
+        build_map_context)
+    for robots, pool in ((1, 1), (4, 2)):
+        sc = entry.mark_clear_scenario(robots, pool, ticks=12)
+        for which in ("first map", "new map"):
+            ctx = build_map_context(sc.ground, sc.walls, device=dev)
+            got = entry.run_mark_clear_pair(sc, ctx, dev)
+            c = got["counters"]
+            tag = f"mark/clear graph, {robots} robot(s), pool {pool}, {which}"
+            check(got["mismatch"] == [],
+                  f"{tag}: graph differs from eager at {got['mismatch']}")
+            check(got["aliased"] == [],
+                  f"{tag}: kept states changed after ticks {got['aliased']}")
+            counts = (got["captures"], got["replays"],
+                      c.get("mark_clear.graph_capture"),
+                      c.get("mark_clear.graph_replay"))
+            check(counts == (1, 11, 1, 11),
+                  f"{tag}: captures, replays (graph, recorder) {counts}")
+            seen, kept = got["eager_counts"]
+            check((c.get("marked_cells"), c.get("marked_kept"))
+                  == (seen, kept) and seen > 0,
+                  f"{tag}: marked counters {c} against eager {seen}, {kept}")
+            print(f"{tag}: 12 ticks bit-equal to eager, 1 capture, 11 "
+                  f"replays, marked {seen} seen / {kept} kept", flush=True)
 
 if __name__ == "__main__":
     main()

@@ -1461,3 +1461,112 @@ def semantic_train_task():
     rgb = rng.uniform(0, 1, (4, 32, 32, 3)).astype(np.float32)
     labels = (rgb.mean(-1) * 3).astype(np.int32).clip(0, 2)
     return rgb, labels
+
+
+# ---------------------------------------------------------------------------
+# mark/clear: the CUDA graph against the eager step
+# ---------------------------------------------------------------------------
+
+class MarkClearScenario(NamedTuple):
+    spec: object              # perception.voxel.VoxelSpec
+    ri: object                # perception.fov.RangeImageSpec
+    params: object            # perception.marking.MarkingParams
+    ground: np.ndarray        # (G, 3) the floor's ground nodes
+    walls: np.ndarray         # (M, 3) the static map's points
+    # per tick (scan_pts (B, N, 3), scan_mask (B, N), robot_pos (B, 3),
+    # robot_quat (B, 4), sensor_pos (B, 3), sensor_quat (B, 4)), numpy
+    ticks: list
+
+
+def mark_clear_scenario(robots: int = 1, pool: int = 1,
+                        ticks: int = 12) -> MarkClearScenario:
+    """``robots`` robots driving and turning past two boxes on a 4 × 4 m
+    floor, at a 32 × 32 × 16 window of 0.05 m (``pool`` > 1 clusters on
+    the pooled lattice): each tick a scan of the boxes and the floor, a
+    different share of it dropped every other tick so that marked cells
+    are also cleared."""
+    from dddmr_navigation_tpu_torch.perception.fov import RangeImageSpec
+    from dddmr_navigation_tpu_torch.perception.marking import MarkingParams
+    from dddmr_navigation_tpu_torch.perception.voxel import VoxelSpec
+    spec = VoxelSpec(32, 32, 16, 0.05, 0.05)
+    ri = RangeImageSpec(rows=16, cols=360, elev_min_deg=-15.0,
+                        elev_max_deg=15.0)
+    params = MarkingParams(
+        scan_effective_positive_start=0.0, scan_effective_negative_start=0.0,
+        segmentation_ignore_ratio=0.5, max_marked_voxels=256,
+        max_window_nodes=512, cluster_pool=pool)
+    ground = flat_ground_map(4, 4, 0.25)
+    walls = box_obstacle([1.2, 0.8, 0.0], size=(0.3, 0.3, 0.6))
+    cloud = np.concatenate([
+        box_obstacle([0.5, 0.2, 0.1], size=(0.2, 0.4, 0.25), resolution=0.04),
+        box_obstacle([-0.3, -0.5, 0.0], size=(0.3, 0.2, 0.4),
+                     resolution=0.04),
+        np.stack(np.meshgrid(np.arange(-1.5, 1.5, 0.1),
+                             np.arange(-1.5, 1.5, 0.1), [-0.02],
+                             indexing="ij"), -1).reshape(-1, 3),
+    ]).astype(np.float32)
+    n = 1024
+    b_idx = np.arange(robots, dtype=np.float32)
+    out = []
+    for k in range(ticks):
+        pos = np.stack([-0.2 + 0.1 * b_idx + 0.06 * k,
+                        0.05 * b_idx - 0.03 * k,
+                        np.zeros(robots, np.float32)], 1).astype(np.float32)
+        yaw = (0.1 * k * (1 - 2 * (b_idx % 2)) + 0.3 * b_idx).astype(
+            np.float32)
+        quat = np.stack([np.zeros_like(yaw), np.zeros_like(yaw),
+                         np.sin(yaw / 2), np.cos(yaw / 2)], 1)
+        pts = np.zeros((robots, n, 3), np.float32)
+        mask = np.zeros((robots, n), bool)
+        for b in range(robots):
+            keep = np.random.default_rng([k, b]).uniform(
+                size=len(cloud)) < (0.9 if k % 2 == 0 else 0.4)
+            sel = cloud[keep][:n]
+            pts[b, :len(sel)] = sel
+            mask[b, :len(sel)] = True
+        sensor = pos + np.array([0.0, 0.0, 0.25], np.float32)
+        out.append((pts, mask, pos, quat.astype(np.float32), sensor,
+                    quat.astype(np.float32)))
+    return MarkClearScenario(spec, ri, params, ground, walls, out)
+
+
+def run_mark_clear_pair(sc: MarkClearScenario, map_ctx, device) -> dict:
+    """The scenario's ticks through ``perception_update`` (a CUDA graph on
+    the card) with the recorder on, and from each tick's same start state
+    through its eager body. Returns {"mismatch": [(tick, field)] where the
+    two differ in a bit, "aliased": [ticks t whose kept state changed in
+    tick t + 1], "captures" / "replays": the graphs' counts over the
+    run, "counters": the recorder's, "eager_counts": the eager body's
+    marked cells seen and kept, summed}."""
+    from dddmr_navigation_tpu_torch.perception import marking
+    graphs = marking.MARK_CLEAR_GRAPHS
+    c0, r0 = graphs.captures, graphs.replays
+    dev = torch.device(device)
+    ticks = [tuple(torch.as_tensor(a, device=dev) for a in tick)
+             for tick in sc.ticks]
+    state = marking.init_marking_state(sc.spec, sc.params, len(sc.ground),
+                                       ticks[0][2])
+    fields = ("grid", "origin", "dgraph", "clear_offset")
+    mismatch, aliased, seen, kept = [], [], 0, 0
+    prev = None
+    with tracing.recording():
+        before = tracing.counters()
+        for t, (pts, mask, pos, quat, spos, squat) in enumerate(ticks):
+            eager = marking._perception_step(
+                sc.spec, sc.ri, sc.params, map_ctx, *state, pts, mask, pos,
+                quat, spos, squat)
+            seen, kept = seen + int(eager[4]), kept + int(eager[5])
+            state = marking.perception_update(
+                sc.spec, sc.ri, sc.params, state, map_ctx, pts, mask, pos,
+                quat, spos, squat)
+            mismatch += [(t, f) for f, a, b in zip(fields, state, eager)
+                         if not torch.equal(a, b)]
+            if prev is not None and not all(
+                    torch.equal(a, b) for a, b in zip(*prev[1:])):
+                aliased.append(prev[0])
+            prev = (t, state, [x.clone() for x in state])
+        after = tracing.counters()
+    counters = {k: v - before.get(k, 0) for k, v in after.items()}
+    return {"mismatch": mismatch, "aliased": aliased,
+            "captures": graphs.captures - c0, "replays": graphs.replays - r0,
+            "counters": counters, "eager_counts": (seen, kept)}

@@ -10,7 +10,6 @@ from __future__ import annotations
 import torch
 
 from dddmr_navigation_tpu_torch.ops.compaction import first_k_true_indices
-from dddmr_navigation_tpu_torch.ops.fixpoint import iterate_to_fixpoint
 
 
 def _linear_index(shape, device):
@@ -22,11 +21,23 @@ def label_components(occ, tol_cells: int = 2, num_iters: int = 24):
     """Label connected components of each robot's occupancy (B, X, Y, Z).
 
     Every occupied cell starts with its linear index; each sweep takes the
-    min label over the (2·tol+1)³ cube, as three 1-D window mins. The loop
-    stops at the label fixpoint or after ``num_iters`` sweeps, per robot.
+    min label over the (2·tol+1)³ cube, as three 1-D window mins. The JAX
+    loop stops at the label fixpoint or after ``num_iters`` sweeps, per
+    robot; here every robot takes exactly ``num_iters`` sweeps, with no
+    host read of a "done" flag (so a CUDA graph can capture the loop).
+    The labels are the same: at the fixpoint a sweep changes nothing.
 
     Returns (B, X, Y, Z) int32 labels, -1 where unoccupied.
     """
+    labels, sweep = _label_sweep(occ, tol_cells)
+    for _ in range(num_iters):
+        labels = sweep(labels)
+    return torch.where(occ.bool(), labels, -1)
+
+
+def _label_sweep(occ, tol_cells: int):
+    """(the start labels, one sweep) of :func:`label_components`: each
+    occupied cell's linear index, ``x·y·z + 1`` where unoccupied."""
     occ = occ.bool()
     x, y, z = occ.shape[1:]
     big = x * y * z + 1
@@ -51,8 +62,7 @@ def label_components(occ, tol_cells: int = 2, num_iters: int = 24):
             prop = axis_min(prop, dim)
         return torch.where(occ, torch.minimum(lbl, prop), big)
 
-    labels, _ = iterate_to_fixpoint(sweep, labels, num_iters, block=8)
-    return torch.where(occ, labels, -1)
+    return labels, sweep
 
 
 def label_components_pooled(occ, pool: int, num_iters: int = 24):
@@ -72,8 +82,11 @@ def label_components_pooled(occ, pool: int, num_iters: int = 24):
     lab_p = label_components(occ_p, tol_cells=1, num_iters=num_iters)
     root = (occ_p & (lab_p == _linear_index((xp, yp, zp), occ.device))
             ).view(b, -1)
-    up = lab_p.repeat_interleave(p, 1).repeat_interleave(p, 2) \
-        .repeat_interleave(p, 3)[:, :x, :y, :z]
+    # each pooled label repeated p times along every axis (an expand, where
+    # repeat_interleave may copy its repeats to the device)
+    up = lab_p[:, :, None, :, None, :, None].expand(
+        b, xp, p, yp, p, zp, p).reshape(b, xp * p, yp * p, zp * p)[
+            :, :x, :y, :z]
     return torch.where(occ, up, -1), root
 
 

@@ -15,6 +15,7 @@ from dddmr_navigation_tpu_torch.geometry import (
     quat_rotate_fma, quat_conjugate)
 from dddmr_navigation_tpu_torch.rounding import (
     asin_xla, atan2_xla, fma, fma_dot, fma_norm, recip_times)
+from dddmr_navigation_tpu_torch.perception.voxel import device_constant
 
 # jnp.degrees multiplies by the f32 constant 180/pi.
 _RAD2DEG = float(np.float32(180.0 / np.pi))
@@ -33,7 +34,7 @@ def spherical_rad(sensor_pos, sensor_quat, pts):
     w.r.t. each robot's sensor pose (B, 3), (B, 4)."""
     d = pts - sensor_pos[:, None, :]
     rng = fma_norm(d)
-    z = torch.tensor([0.0, 0.0, 1.0], device=pts.device)
+    z = device_constant((0.0, 0.0, 1.0), torch.float32, pts.device)
     normal = quat_rotate_fma(sensor_quat, z.expand_as(sensor_pos))     # (B, 3)
     p2plane = fma_dot(d, normal[:, None, :])
     safe_rng = torch.clamp(rng, min=1e-9)

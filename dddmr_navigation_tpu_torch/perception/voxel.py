@@ -11,6 +11,7 @@ boundaries.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -27,6 +28,14 @@ class VoxelSpec(NamedTuple):
     height_resolution: float
 
 
+@functools.lru_cache(maxsize=None)
+def device_constant(values: tuple, dtype: torch.dtype, device):
+    """The constant tensor ``values`` on ``device``, copied there once: a
+    copy per call would be a host sync, which a captured CUDA graph
+    refuses. Shared by every caller: never write into it."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def world_to_cell(spec: VoxelSpec, pts):
     """Global voxel coords, int(c/res) truncating toward zero: (..., 3)
     int32."""
@@ -39,16 +48,16 @@ def world_to_cell(spec: VoxelSpec, pts):
 def cell_to_world(spec: VoxelSpec, cells):
     """Voxel corner position, ``idx*res`` (the reference's representative
     point)."""
-    res = torch.tensor([spec.xy_resolution, spec.xy_resolution,
-                        spec.height_resolution], dtype=torch.float32,
-                       device=cells.device)
+    res = device_constant((spec.xy_resolution, spec.xy_resolution,
+                           spec.height_resolution), torch.float32,
+                          cells.device)
     return cells.float() * res
 
 
 def window_origin_for(spec: VoxelSpec, robot_xyz):
     """Window origin cell that centers the window on each robot: (B, 3)."""
-    half = torch.tensor([spec.nx // 2, spec.ny // 2, spec.nz // 2],
-                        dtype=torch.int32, device=robot_xyz.device)
+    half = device_constant((spec.nx // 2, spec.ny // 2, spec.nz // 2),
+                           torch.int32, robot_xyz.device)
     return world_to_cell(spec, robot_xyz) - half
 
 

@@ -1,7 +1,8 @@
 """One run of a ``navbench`` cell with the port's span and counter recorder
 on (``dddmr_navigation_tpu_torch/runtime/tracing.py``), read into per-layer
 numbers: the layers' times a tick from the spans, host reads a tick, the
-share of marked cells past the cap, the cold first tick, and, with
+mark/clear graph's captures and replays a tick, the share of marked cells
+past the cap, the cold first tick, and, with
 ``--trace 1``, the profiled ticks' device-idle time, kernel launches and
 CUDA sync-debug warnings by the innermost span open at each.
 
@@ -86,6 +87,9 @@ def span_metrics(kind, kept, roots, window, counters) -> dict:
     for key, names in layers.items():
         out[f"{kind}.span.{key}"] = layer_ms(kept, window, names)
     out[f"{kind}.host_reads_per_tick"] = reads_per_tick(kept, window)
+    for what in ("capture", "replay"):
+        out[f"{kind}.mark_clear_graph_{what}s_per_tick"] = reads_per_tick(
+            kept, window, f"mark_clear.graph_{what}")
     if kind == "fleet" and counters.get("marked_cells"):
         out["fleet.marked_dropped_pct"] = 100.0 * (
             1.0 - counters["marked_kept"] / counters["marked_cells"])
@@ -95,12 +99,13 @@ def span_metrics(kind, kept, roots, window, counters) -> dict:
     return out
 
 
-def reads_per_tick(kept, roots) -> float | None:
-    """``host_reads`` a tick over the ticks of the root spans ``roots``."""
+def reads_per_tick(kept, roots, name="host_reads") -> float | None:
+    """The host counter ``name`` a tick over the ticks of the root spans
+    ``roots``."""
     if not roots:
         return None
     ticks = {kept[i].tick for i in roots}
-    return sum(s.counts.get("host_reads", 0) for s in kept
+    return sum(s.counts.get(name, 0) for s in kept
                if s.tick in ticks) / len(roots)
 
 
