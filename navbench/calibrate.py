@@ -12,12 +12,21 @@ change to the order of the program's arithmetic moves each number); the
 control, which is the plain reference put in the program's place and
 computed in bfloat16 (its start state and every float32 tensor a stage
 of the tick hands on rounded to bfloat16); and each fault the cell can
-have, planted in the program's tick:
+have, planted in the tick of the configuration's system module
+(``systems/<system>.py::tick``, the benchmark's contract with the
+program):
 
 * ``stale_state``: the tick returns the state it was given;
 * ``half_batch``: the second half of the robots get the first half's
-  outputs and state (a fleet only);
-* ``altered_answer``: robot 0's linear command is 1e-3 m/s off.
+  record and state (a fleet only);
+* ``altered_answer``: element 0 of the first path of the configuration's
+  ``compare["cmd"]`` is 1e-3 off (robot 0's linear command in both
+  configurations of today).
+
+Planted there, a fault reaches the program because a system keeps to its
+contract (``navbench/systems/__init__.py``): the state tree carries all
+of the program's state, and the record's answer is the one that the
+program's entry returned. ``navbench/tests/`` holds every system to both.
 
 Each run prints its readings; the file gets them all.
 """
@@ -78,27 +87,57 @@ def _halves(x):
     return _map_tree(half, x)
 
 
-def fault(name: str, pkg: str, config: dict):
-    """Context: the fault ``name`` planted in ``pkg``'s tick entry."""
-    def make(_name, fn):
-        def faulty(*args, **kwargs):
-            state2, out = fn(*args, **kwargs)
-            state_in = args[6]              # both ticks take it seventh
+def _altered(x: torch.Tensor) -> torch.Tensor:
+    y = x.flatten().clone()
+    y[0] += 1e-3
+    return y.reshape(x.shape)
+
+
+def _replaced(x, path: list, fn):
+    """A copy of the tree ``x`` with ``fn`` applied to the value at
+    ``path`` (its parts as :func:`navbench.run.resolve_path` reads them)."""
+    if not path:
+        return fn(x)
+    part, rest = path[0], path[1:]
+    if isinstance(x, dict):
+        return {**x, part: _replaced(x[part], rest, fn)}
+    if part.isdigit():
+        items = list(x)
+        items[int(part)] = _replaced(items[int(part)], rest, fn)
+        return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
+    return x._replace(**{part: _replaced(getattr(x, part), rest, fn)})
+
+
+def fault(name: str, config: dict):
+    """Context: the fault ``name`` planted in the tick of the
+    configuration's system module, ``tick(built, state, t) -> (state,
+    record)``: the benchmark's own contract with the program. The
+    altered answer is element 0 of the first path of ``compare["cmd"]``."""
+    sysmod = load_system(config["system"])
+    cmd = config["compare"]["cmd"]
+    answer = (cmd["paths"] if isinstance(cmd, dict) else cmd)[0].split(".")
+
+    def make(tick):
+        def faulty(built, state, t):
+            state2, rec = tick(built, state, t)
             if name == "stale_state":
-                return state_in, out
+                return state, rec
             if name == "half_batch":
-                return _halves(state2), _halves(out)
+                return _halves(state2), _halves(rec)
             if name == "altered_answer":
-                if isinstance(out, dict):
-                    vx = out["vx"].clone()
-                    vx[0] += 1e-3
-                    return state2, {**out, "vx": vx}
-                vx = out.vx.clone()
-                vx[0] += 1e-3
-                return state2, out._replace(vx=vx)
+                return state2, _replaced(rec, answer, _altered)
             raise KeyError(name)
         return faulty
-    return lambda: patched(pkg, {"entry": config["entry"]}, make)
+
+    @contextlib.contextmanager
+    def planted():
+        tick = sysmod.tick
+        sysmod.tick = make(tick)
+        try:
+            yield
+        finally:
+            sysmod.tick = tick
+    return planted
 
 
 FAULTS = ("stale_state", "half_batch", "altered_answer")
@@ -171,7 +210,7 @@ def main(argv=None) -> int:
     runs += [("reordered", s, PROGRAM,
               lambda: plain_rounding(PROGRAM, cell.config))
              for s in ints(args.reordered_seeds)]
-    runs += [(f, s, PROGRAM, fault(f, PROGRAM, cell.config))
+    runs += [(f, s, PROGRAM, fault(f, cell.config))
              for s in ints(args.fault_seeds) for f in FAULTS
              if applicable(f, cell.config)]
     results = []

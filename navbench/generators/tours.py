@@ -12,7 +12,8 @@ one on arrival), the sweep ray-cast from that pose (through the clutter,
 the static boxes and, with ``bodies``, the other robots at that tick),
 the odometry drift and the MCL draws. None of it depends on the commands
 the program returns, so the parent and a change see the same inputs tick
-for tick.
+for tick. ``clutter`` and ``bodies`` may be null: no boxes besides the
+map's, and sweeps that meet only the map.
 """
 from __future__ import annotations
 
@@ -382,7 +383,7 @@ def generate(world, config: dict, p: dict, seed: int, device) -> Traffic:
     robots, period, dt = config["robots"], p["period_ticks"], config["dt"]
     pos, yaw, v, w, goals, clutter, speeds = tours(world, p, robots, period,
                                                    dt, rng)
-    if p.get("clutter", {}).get("beside_route"):
+    if (p.get("clutter") or {}).get("beside_route"):
         clutter = np.concatenate([clutter, _beside(rng, pos, yaw, world, p)])
     drift = p.get("odometry_drift", {})
     dpos = _periodic_walk(rng, (period, robots, 3), drift.get("pos_sigma", 0))

@@ -160,6 +160,26 @@ def to_side(x, pkg: str):
     return x
 
 
+def describe(traffic) -> str:
+    """The fields of a generator's traffic (a NamedTuple), whatever they
+    are: an array's shape (and range, along one axis), a dict's keys, a
+    sequence's length."""
+    def one(x):
+        if hasattr(x, "shape"):
+            if x.ndim == 0:
+                return f"{float(x):g}"
+            if x.ndim == 1 and len(x):
+                return (f"{tuple(x.shape)} {float(x.min()):.2f}-"
+                        f"{float(x.max()):.2f}")
+            return str(tuple(x.shape))
+        if isinstance(x, dict):
+            return "{" + " ".join(x) + "}"
+        if isinstance(x, (list, tuple)):
+            return f"[{len(x)}]"
+        return repr(x)
+    return ", ".join(f"{k} {one(v)}" for k, v in traffic._asdict().items())
+
+
 def check_ticks(check: dict, seed: int) -> tuple:
     """(the ticks the reference follows from its own start, the further
     ticks it recomputes from the program's state): the second drawn from
@@ -304,8 +324,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
     traffic = load_generator(tp["generator"])(world, config, tp, seed,
                                               device)
     marks.append(("world and traffic", time.perf_counter()))
-    log(f"traffic: {len(traffic.clutter)} clutter boxes, tours at "
-        f"{traffic.speeds.min():.2f}-{traffic.speeds.max():.2f} m/s")
+    log(f"traffic: {describe(traffic)}")
     stack = contextlib.ExitStack()
     stack.enter_context((program_context or contextlib.nullcontext)())
     prog = Side(program, sysmod, config, world, traffic, device)

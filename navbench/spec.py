@@ -1,15 +1,42 @@
 """Finds what a cell is made of, by the names in ``BENCHMARK.json``.
 
 A cell (an entry of ``workloads``) names a configuration and a traffic
-mix. A configuration is ``configs/<name>.json`` (the deployment: its map,
-its sensor, the program's settings and the comparison's limits); a traffic
-mix is ``traffic/<name>.json`` (the parameters that the module
-``generators/<generator>.py`` it names reads); a per-layer metric is
-``metrics/<name>.py`` with a ``read(record)`` function. A configuration's
-``system`` names the module under ``systems/`` that runs it. Nothing
-here knows a cell by name: a new cell, configuration, traffic mix or
-metric is a new file and a new entry (and a new kind of traffic or of
-deployment a new module beside the others).
+mix. Nothing here knows a cell by name: a new configuration, traffic mix,
+kind of traffic or deployment, or metric is new files and new entries,
+each found by its name:
+
+* ``configs/<config>.json``: the deployment (its map, sensor and robots,
+  the program's settings) and what the harness reaches in the program,
+  each ``"module:attr"`` under the package (``"module:Class.attr"`` for
+  a method, set on the class): ``system`` (the module
+  ``systems/<system>.py``), ``init`` (what makes the start state),
+  ``entry`` (the tick), ``stages`` ({name: target} timed in a traced run
+  and rounded in the control), ``capture`` (a stage whose outputs the
+  comparison reads, optional), ``kernels`` ({name: target} whose
+  arguments the rooflines of ``bounds.py`` take, optional), ``counters``
+  ({name: record path} read each traced tick, optional), ``compare``
+  ({number: record paths}, with a ``cmd`` whose first path is the
+  answer that the planted fault alters) and ``limits`` ({number: limit},
+  ``start`` too), ``report`` ({name: [record path, cap]}, optional);
+* ``tiny/<config>.json``: the configuration cut to a CPU test's size
+  (merged over the configuration; its ``traffic``, if any, over the
+  tests' traffic cut);
+* ``traffic/<mix>.json``: the parameters that ``generators/<generator>.py``
+  reads, with ``period_ticks``, ``warmup_ticks``, ``check`` and
+  ``trace``;
+* ``generators/<generator>.py``: ``generate(world, config, params, seed,
+  device)`` returning a NamedTuple of the inputs that the system reads;
+* ``systems/<system>.py`` (the module ``navbench.systems.<system>``):
+  ``MODULES`` (the modules of a side it calls), ``Built(pkg, config,
+  world, traffic, device)`` with its ``state0`` (a tree of tensors), and
+  ``tick(built, state, t) -> (state, record)``, the benchmark's contract
+  with the program, where the faults are planted. The state tree carries
+  all of the program's state: ``Built`` holds only what no tick changes,
+  so a tick is a function of its arguments (the faults and the forced
+  ticks rely on it; a test holds every system to it). The record's
+  ``cmd`` holds the answer that the program's entry returned. The
+  reference under ``reference/`` holds a copy of every module it calls;
+* ``metrics/<metric>.py``: ``read(record)`` of a per-layer metric.
 """
 from __future__ import annotations
 

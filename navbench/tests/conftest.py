@@ -1,53 +1,25 @@
 """Cells cut to a CPU test's size: the same files, smaller numbers.
 
-The tests here run on the CPU (the kernels take their plain versions
-there); those that need the card carry the ``cuda`` marker and decide in
-a fixture whether there is one.
+Each configuration's cut is ``tiny/<config>.json``, merged over the
+configuration; its ``traffic``, if any, is merged over :data:`TINY_TRAFFIC`,
+which is merged over the cell's traffic. The tests here run on the CPU
+(the kernels take their plain versions there); those that need the card
+carry the ``cuda`` marker and decide in a fixture whether there is one.
 """
 from __future__ import annotations
 
 import copy
+import json
+import os
 
 import pytest
 import torch
 
-from navbench.spec import Cell, load_benchmark
+from navbench import spec
+from navbench.calibrate import _map_tree
+from navbench.run import PROGRAM, diff, resolve_path
+from navbench.trace import patched
 
-TINY = {
-    "fleet64": {
-        "robots": 3,
-        "sensor": {"rings": 8, "cols": 32},
-        "navigation": {
-            "perception": {"lidar": {"max_scan_points": 256},
-                           "voxel_window_cells_xy": 32,
-                           "voxel_window_cells_z": 12,
-                           "max_marked_voxels": 128,
-                           "max_window_nodes": 1024},
-            "local_planner": {"generator": {"linear_x_sample": 4,
-                                            "angular_z_sample": 4,
-                                            "max_num_steps": 8},
-                              "max_obstacle_points": 64,
-                              "collision_near_k": 16},
-            "global_planner": {"max_relax_iters": 64,
-                               "max_long_edges": 32}},
-        "mcl": {"num_particles": 8},
-    },
-    "robot8k": {
-        "sensor": {"rings": 8, "cols": 64},
-        "navigation": {
-            "perception": {"lidar": {"max_scan_points": 512,
-                                     "range_image_rows": 8,
-                                     "range_image_cols": 64},
-                           "voxel_window_cells_xy": 32,
-                           "voxel_window_cells_z": 16},
-            "local_planner": {"generator": {"linear_x_sample": 4,
-                                            "angular_z_sample": 8,
-                                            "max_num_steps": 8},
-                              "max_obstacle_points": 128,
-                              "collision_near_k": 16},
-            "global_planner": {"max_relax_iters": 96}},
-    },
-}
 TINY_TRAFFIC = {"period_ticks": 48, "warmup_ticks": 1,
                 "check": {"chain_ticks": 2, "forced_ticks": 2, "below": 6},
                 "trace": {"profile_ticks": 1, "sync_ticks": 1}}
@@ -61,13 +33,51 @@ def _merge(base: dict, over: dict) -> dict:
     return out
 
 
-def tiny_cell(workload: str) -> Cell:
-    """The benchmark's cell ``workload`` cut to a CPU test's size."""
+def cpu_cut_path(config: str) -> str:
+    return os.path.join(spec.HERE, "tiny", f"{config}.json")
+
+
+def tiny_cell(workload: str, bench: dict = None) -> spec.Cell:
+    """The cell ``workload`` of ``bench`` (the benchmark's own by default)
+    cut to a CPU test's size."""
     torch.set_num_threads(2)
-    cell = Cell(load_benchmark(), workload)
-    cell.config = _merge(cell.config, TINY[cell.entry["config"]])
-    cell.traffic = _merge(cell.traffic, TINY_TRAFFIC)
+    cell = spec.Cell(bench or spec.load_benchmark(), workload)
+    with open(cpu_cut_path(cell.entry["config"])) as f:
+        cut = json.load(f)
+    traffic = _merge(TINY_TRAFFIC, cut.pop("traffic", {}))
+    cell.config = _merge(cell.config, cut)
+    cell.traffic = _merge(cell.traffic, traffic)
     return cell
+
+
+def repeat_gap(sysmod, built, ticks: int = 3) -> float:
+    """How far a second call of each of the first ``ticks`` ticks, from
+    the same state, lands from the first (state and record): 0 where the
+    state tree carries all of the program's state, as the planted faults
+    and the forced ticks need."""
+    state, gap = built.state0, 0.0
+    for t in range(ticks):
+        first = sysmod.tick(built, state, t)
+        gap = max(gap, diff(first, sysmod.tick(built, state, t)))
+        state = first[0]
+    return gap
+
+
+def answer_shift(sysmod, built, config: dict) -> float:
+    """How far the first path of ``compare["cmd"]`` in tick 0's record
+    moves when the program's entry returns every float 1e-3 off: 1e-3
+    where the record's answer is the one the entry returned."""
+    def make(_name, fn):
+        def off(*args, **kwargs):
+            return _map_tree(lambda x: x + 1e-3 if x.is_floating_point()
+                             else x, fn(*args, **kwargs))
+        return off
+    cmd = config["compare"]["cmd"]
+    path = (cmd["paths"] if isinstance(cmd, dict) else cmd)[0]
+    _, rec = sysmod.tick(built, built.state0, 0)
+    with patched(PROGRAM, {"entry": config["entry"]}, make):
+        _, moved = sysmod.tick(built, built.state0, 0)
+    return diff(resolve_path(moved, path), resolve_path(rec, path))
 
 
 @pytest.fixture

@@ -2,9 +2,9 @@
 host syncs and the kernels' arguments.
 
 * Stage times: each stage function the configuration lists is wrapped, in
-  its module, by a function that records a CUDA event before and after
-  it (the host clock on the CPU); the tick looks the stage up by name, so
-  no tick body is copied.
+  its module (a method on its class), by a function that records a CUDA
+  event before and after it (the host clock on the CPU); the tick looks
+  the stage up by name, so no tick body is copied.
 * The device trace: ``torch.profiler`` over a few ticks, opened by
   ``PROFILE_LEAD`` launches of a lead kernel (``erfcx``, which no tick
   runs): on the H100 the profiler drops a profile's first device records
@@ -29,29 +29,40 @@ import torch
 
 PROFILE_LEAD = 64
 ANNOTATIONS = ("navbench:", "stage:")   # the harness's profiler ranges
+_ABSENT = object()
 
 
 def resolve(pkg: str, target: str):
-    """(module, attribute) of ``"module.path:attr"`` under ``pkg``."""
+    """(owner, attribute) of ``"module.path:attr"`` under ``pkg``, the
+    owner being the module, or of ``"module.path:Class.attr"``, the owner
+    being the class whose method it names."""
     mod, attr = target.split(":")
-    return importlib.import_module(f"{pkg}.{mod}"), attr
+    owner = importlib.import_module(f"{pkg}.{mod}")
+    *classes, attr = attr.split(".")
+    for name in classes:
+        owner = getattr(owner, name)
+    return owner, attr
 
 
 @contextlib.contextmanager
 def patched(pkg: str, targets: dict, make):
-    """Replace each ``targets`` value (``"module:attr"``) by
-    ``make(name, original)`` for the duration."""
+    """Replace each ``targets`` value (see :func:`resolve`) by
+    ``make(name, original)`` for the duration, a method on its class;
+    then put back what the owner held itself, and take the wrapper off
+    where it held nothing (an inherited method)."""
     saved = []
     try:
         for name, target in targets.items():
-            mod, attr = resolve(pkg, target)
-            orig = getattr(mod, attr)
-            saved.append((mod, attr, orig))
-            setattr(mod, attr, make(name, orig))
+            owner, attr = resolve(pkg, target)
+            saved.append((owner, attr, vars(owner).get(attr, _ABSENT)))
+            setattr(owner, attr, make(name, getattr(owner, attr)))
         yield
     finally:
-        for mod, attr, orig in reversed(saved):
-            setattr(mod, attr, orig)
+        for owner, attr, own in reversed(saved):
+            if own is _ABSENT:
+                delattr(owner, attr)
+            else:
+                setattr(owner, attr, own)
 
 
 class StageTimer:
