@@ -8,7 +8,9 @@ halts the timer and stops the DWA recompute too (`:83-106`);
 ``take_plan()`` hands the freshest path to the control loop once
 (`:174-186`).
 
-* :class:`SyncPlanManager` queries inline when the timer elapses.
+* :class:`SyncPlanManager` queries inline when the timer elapses. Its
+  state between ticks is a :class:`PlanManagerState` (:meth:`state`,
+  :meth:`load`), its DWA manager's inside it.
 * :class:`AsyncPlanManager` runs the queries on a worker thread, so a slow
   plan never stalls the control tick. On the card the worker plans on its
   own CUDA stream: each ``offer()`` records an event on the tick's stream
@@ -21,13 +23,26 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from dddmr_navigation_tpu_torch.planning.global_.dwa import (
-    CachedPlan, DWAGlobalPlanManager)
+    CachedPlan, DWAGlobalPlanManager, DWAState, to_arrays, to_tensors)
+from dddmr_navigation_tpu_torch.runtime import tracing
+
+
+class PlanManagerState(NamedTuple):
+    """What a :class:`SyncPlanManager` carries from tick to tick."""
+    goal_pos: Optional[torch.Tensor]     # (3,) CPU, None before a goal
+    goal_quat: Optional[torch.Tensor]    # (4,) CPU
+    active: bool                         # the query timer runs
+    last_query_t: float
+    plan: Optional[CachedPlan]           # the freshest path, CPU tensors
+    fresh: bool                          # not yet taken
+    empty_result: bool                   # the last query found no path
+    dwa: DWAState
 
 
 class _Snapshot:
@@ -61,6 +76,25 @@ class SyncPlanManager:
         self._plan: Optional[CachedPlan] = None
         self._fresh = False
         self._empty_result = False
+
+    def state(self) -> PlanManagerState:
+        goal = self.goal or (None, None)
+        return PlanManagerState(
+            goal_pos=to_tensors(goal[0]), goal_quat=to_tensors(goal[1]),
+            active=self.active, last_query_t=self._last_query_t,
+            plan=to_tensors(self._plan), fresh=self._fresh,
+            empty_result=self._empty_result, dwa=self.dwa.state())
+
+    def load(self, s: PlanManagerState):
+        """Put back a :meth:`state` (its arrays shared, never written)."""
+        self.goal = (None if s.goal_pos is None else
+                     (to_arrays(s.goal_pos), to_arrays(s.goal_quat)))
+        self.active = s.active
+        self._last_query_t = s.last_query_t
+        self._plan = to_arrays(s.plan)
+        self._fresh = s.fresh
+        self._empty_result = s.empty_result
+        self.dwa.load(s.dwa)
 
     def set_goal(self, goal_pos, goal_quat):
         self.goal = (np.asarray(goal_pos, np.float32),
@@ -121,6 +155,8 @@ class SyncPlanManager:
         if now - self._last_query_t < 1.0 / self.query_frequency:
             return
         self._last_query_t = now
+        if tracing.on():
+            tracing.count("plan_queries")
         path = self._query(robot_pos, dgraph, now, lethal_pts, lethal_valid,
                            self.goal, recompute=False)
         self._empty_result = path is None
@@ -151,6 +187,14 @@ class AsyncPlanManager(SyncPlanManager):
     def close(self):
         self._shutdown = True
         self._thread.join(timeout=5.0)
+
+    def state(self) -> PlanManagerState:
+        with self._lock:
+            return super().state()
+
+    def load(self, s: PlanManagerState):
+        with self._lock:
+            super().load(s)
 
     def set_goal(self, goal_pos, goal_quat):
         """Swap the goal under the lock: the worker publishes a finished
@@ -204,6 +248,8 @@ class AsyncPlanManager(SyncPlanManager):
                     snap, goal = self._snapshot, self.goal
             if snap is not None:
                 try:
+                    if tracing.on():
+                        tracing.count("plan_queries")
                     path = self._plan_from(snap, goal)
                     with self._lock:
                         # a stop() or set_goal() may have raced the query

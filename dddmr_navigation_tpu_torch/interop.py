@@ -241,14 +241,18 @@ def _marking(prefix, m, fill, out):
 
 
 def session_fields(sess) -> dict:
-    """Everything a navigation session (the JAX package's or the port's:
-    the same attribute names) carries from tick to tick, as numpy by
-    name: its ``checkpoint_state()`` (the marking grids and fields stored
-    sparse, the FSM, the move-base field, the depth ring's slots except
-    their points, which the frames pushed give back), the adopted plan,
-    the recovery, the plan manager's and the DWA manager's caches and
-    timers, and the session's host clocks. :func:`port_session_state`
-    turns it back into the port's state."""
+    """What a navigation session (the JAX package's or the port's: the
+    same attribute names) carries from tick to tick, as numpy by name,
+    for the golden files that hold the two packages to each other: its
+    ``checkpoint_state()`` (the marking grids and fields stored sparse,
+    the FSM, the move-base field, the depth ring's slots except their
+    points, which the frames pushed give back), the adopted plan, the
+    recovery, the plan manager's and the DWA manager's caches and timers,
+    and the session's host clocks. :func:`port_session_state` turns it
+    back into the port's state. The port's own complete form of that
+    state, tensors and all, is ``control.session.SessionState``
+    (``NavigationSession.state()``; the lidar stitcher's ring and the
+    no-entry toggle are there too)."""
     fill = float(sess.cfg.perception.max_obstacle_distance)
     d = sess.driver
     pm, dwa = d.plan_manager, d.plan_manager.dwa

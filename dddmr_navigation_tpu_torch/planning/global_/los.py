@@ -61,6 +61,17 @@ def long_edge_los_mask(nbr_idx, nbr_dist, nbr_valid, positions,
     return mask[:, :g * k].view(b, g, k)
 
 
+def long_edge_counts(nbr_dist, nbr_valid, *, inscribed_radius: float,
+                     max_long_edges: int):
+    """(long edges, those :func:`long_edge_los_mask` checks) of each
+    robot's graph, (B,) device tensors: edges past ``max_long_edges`` go
+    ungated. nbr_valid (G, K) or (B, G, K)."""
+    long_edge = nbr_valid & (nbr_dist >= 2.0 * inscribed_radius)
+    seen = long_edge.reshape(-1, long_edge.shape[-2] * long_edge.shape[-1]
+                             ).sum(dim=1)
+    return seen, torch.clamp(seen, max=max_long_edges)
+
+
 def lethal_cloud_from_dgraph(ground, ground_valid, dgraph, *,
                              inscribed_radius: float, max_lethal: int = 2048):
     """Each robot's lethal cloud: ground nodes whose distance field is

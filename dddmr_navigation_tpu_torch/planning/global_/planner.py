@@ -16,10 +16,12 @@ import torch
 from dddmr_navigation_tpu_torch.config import GlobalPlannerConfig
 from dddmr_navigation_tpu_torch.geometry import slope_aware_quat
 from dddmr_navigation_tpu_torch.rounding import fma_norm
-from dddmr_navigation_tpu_torch.planning.global_.los import long_edge_los_mask
+from dddmr_navigation_tpu_torch.planning.global_.los import (
+    long_edge_counts, long_edge_los_mask)
 from dddmr_navigation_tpu_torch.planning.global_.wavefront import (
     node_costs, wavefront_distances, extract_path,
     wavefront_distances_turning, extract_path_turning)
+from dddmr_navigation_tpu_torch.runtime import tracing
 
 
 class GlobalPathResult(NamedTuple):
@@ -72,10 +74,17 @@ def plan_prepare(cfg: GlobalPlannerConfig, graph_idx, graph_dist, graph_valid,
 
     graph_valid = graph_valid.expand(b, *graph_idx.shape)
     if lethal_pts is not None and cfg.max_long_edges > 0:
-        graph_valid = graph_valid & long_edge_los_mask(
-            graph_idx, graph_dist, graph_valid, ground, lethal_pts,
-            lethal_valid, inscribed_radius=inscribed_radius,
-            max_long_edges=cfg.max_long_edges, samples=cfg.los_samples)
+        with tracing.child("plan.los"):
+            if tracing.on():
+                seen, kept = long_edge_counts(
+                    graph_dist, graph_valid, inscribed_radius=inscribed_radius,
+                    max_long_edges=cfg.max_long_edges)
+                tracing.count_device("los_edges_seen", seen.sum())
+                tracing.count_device("los_edges_kept", kept.sum())
+            graph_valid = graph_valid & long_edge_los_mask(
+                graph_idx, graph_dist, graph_valid, ground, lethal_pts,
+                lethal_valid, inscribed_radius=inscribed_radius,
+                max_long_edges=cfg.max_long_edges, samples=cfg.los_samples)
 
     enter = node_costs(dgraph, node_weight,
                        inscribed_radius=inscribed_radius,

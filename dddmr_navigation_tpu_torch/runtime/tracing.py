@@ -195,6 +195,15 @@ def span(name: str):
     return _Span(name)
 
 
+def child(name: str):
+    """:func:`span` inside an open span of the calling thread only: a
+    layer of a tick, which a worker thread with no span open (a threaded
+    plan manager's query) does not record."""
+    if not _ON or not _open():
+        return _NULL
+    return _Span(name)
+
+
 def stage(name: str):
     """Ends the open stage span, when the innermost open span is one, and
     begins the stage ``name`` under the same parent (a mark: each stage

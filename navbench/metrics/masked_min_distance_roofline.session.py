@@ -1,0 +1,7 @@
+"""The distance kernel's share of its roofline in the session ticks (bound:
+navbench.bounds)."""
+from navbench import readers
+
+
+def read(record):
+    return readers.roofline_pct(record, "masked_min_distance")

@@ -21,12 +21,14 @@ from dddmr_navigation_tpu_torch.state_estimation import pf as tpf
 torch.set_num_threads(2)
 
 FLEET_SPANS = ["tick", "localize", "perceive.mark_clear", "perceive.compose",
-               "plan.prepare", "plan.relax", "plan.extract",
+               "plan.prepare", "plan.los", "plan.relax", "plan.extract",
                "plan.interpolate", "local", "decide"]
 FUSED_SPANS = ["tick", "perceive.mark_clear", "perceive.compose",
                "plan.prepare", "plan.relax", "plan.extract",
                "plan.interpolate", "local"]
 RECORDING = ("_begin", "_end", "_mark", "count", "count_device")
+# spans inside a layer's span (the LOS gate where it runs), by that layer
+NESTED = {"plan.los": "plan.prepare"}
 
 
 @pytest.fixture(autouse=True)
@@ -121,11 +123,18 @@ def test_each_tick_yields_its_span_tree_once(request, kind):
     for first, tick in ((0, 0), (len(want), 1)):
         root, kids = got[first], got[first + 1:first + len(want)]
         assert root.parent == -1 and root.tick == tick
-        assert all(s.parent == first and s.tick == tick for s in kids)
+        layers = [s for s in kids if s.name not in NESTED]
+        assert all(s.parent == first and s.tick == tick for s in layers)
         assert all(root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns
                    for s in kids)
+        for s in kids:
+            if s.name in NESTED:
+                outer = got[s.parent]
+                assert outer.name == NESTED[s.name] and s.tick == tick
+                assert (outer.start_ns <= s.start_ns <= s.end_ns
+                        <= outer.end_ns)
         # the layers run one after another
-        assert all(a.end_ns <= b.start_ns for a, b in zip(kids, kids[1:]))
+        assert all(a.end_ns <= b.start_ns for a, b in zip(layers, layers[1:]))
 
 
 @pytest.mark.parametrize("kind", ["fleet", "fused"])

@@ -56,9 +56,20 @@ AGREE = {
                                     "plan.prepare"],
               "fused.plan_ms": ["plan.relax", "plan.extract"],
               "fused.local_ms": ["plan.interpolate", "local"]},
+    "session": {"session.perceive_ms": ["perception"],
+                "session.depth_ms": ["depth"],
+                "session.compose_ms": ["composition+lethal"],
+                "session.plan_ms": ["plan manager"],
+                "session.local_ms": ["local tick"],
+                "session.fsm_ms": ["FSM"]},
 }
 PERCEIVE = ["perceive.mark_clear", "perceive.compose"]
 PLAN = ["plan.prepare", "plan.relax", "plan.extract", "plan.interpolate"]
+# the session tick's stage spans, by the name of its stage metric
+SESSION = {"perceive_ms": ["perception"], "depth_ms": ["depth"],
+           "compose_ms": ["composition+lethal"], "plan_ms": ["plan manager"],
+           "local_ms": ["local tick"], "fsm_ms": ["FSM"],
+           "load_ms": ["session.load"], "store_ms": ["session.store"]}
 
 
 def layer_ms(kept, roots, names) -> float | None:
@@ -76,6 +87,17 @@ def layer_ms(kept, roots, names) -> float | None:
     return sum(tot.values()) * 1e-6 / len(roots)
 
 
+def nested_ms(kept, roots, name) -> float | None:
+    """Mean ms a tick of the spans named ``name`` at any depth inside the
+    root spans ``roots``."""
+    if not roots:
+        return None
+    ticks = {kept[i].tick for i in roots}
+    ns = sum(s.end_ns - s.start_ns for s in kept if s.tick in ticks
+             and s.name == name and s.parent >= 0 and s.end_ns is not None)
+    return ns * 1e-6 / len(roots)
+
+
 def span_metrics(kind, kept, roots, window, counters) -> dict:
     """The per-layer numbers of one run: ``window`` are the root indices of
     the measured ticks, ``roots`` of every tick."""
@@ -84,6 +106,15 @@ def span_metrics(kind, kept, roots, window, counters) -> dict:
               "plan_prepare_ms": ["plan.prepare"], "local_ms": ["local"]}
     if kind == "fleet":
         layers.update(localize_ms=["localize"], decide_ms=["decide"])
+    if kind == "session":
+        layers = SESSION
+        for name in ("plan.los", "plan.dwa"):
+            out[f"session.span.{name[5:]}_ms"] = nested_ms(kept, window, name)
+        for what in ("lethal", "los_edges"):
+            seen = counters.get(f"{what}_seen")
+            if seen:
+                out[f"session.{what}_dropped_pct"] = 100.0 * (
+                    1.0 - counters[f"{what}_kept"] / seen)
     for key, names in layers.items():
         out[f"{kind}.span.{key}"] = layer_ms(kept, window, names)
     out[f"{kind}.host_reads_per_tick"] = reads_per_tick(kept, window)
@@ -197,7 +228,8 @@ def main(argv=None) -> int:
 
     cell = Cell(load_benchmark(os.path.join(ROOT, "BENCHMARK.json")),
                 args.workload)
-    kind = {"fleet_full": "fleet", "fused": "fused"}[cell.config["system"]]
+    kind = {"fleet_full": "fleet", "fused": "fused",
+            "session": "session"}[cell.config["system"]]
     lines, kept_prof, syncs = [], {}, []
 
     def log(msg):
