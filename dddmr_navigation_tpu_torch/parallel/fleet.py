@@ -30,6 +30,7 @@ from dddmr_navigation_tpu_torch.control.recovery import (
 from dddmr_navigation_tpu_torch.geometry import (
     quat_conjugate, quat_from_yaw, quat_multiply, quat_rotate_fma,
     yaw_from_quat)
+from dddmr_navigation_tpu_torch.ops.cuda_graph import GraphedStep
 from dddmr_navigation_tpu_torch.planning.global_.planner import (
     fleet_plan_finish)
 from dddmr_navigation_tpu_torch.planning.global_.wavefront import (
@@ -40,7 +41,8 @@ from dddmr_navigation_tpu_torch.planning.local.planner import (
 from dddmr_navigation_tpu_torch.rounding import fma_dot, fma_norm
 from dddmr_navigation_tpu_torch.runtime import tracing
 from dddmr_navigation_tpu_torch.state_estimation.mcl import (
-    init_mcl, mcl_update)
+    Lpf3, MCLState, init_mcl, mcl_update)
+from dddmr_navigation_tpu_torch.state_estimation.pf import MCLDraws, PFState
 
 
 class FleetState(NamedTuple):
@@ -208,6 +210,11 @@ class FleetLocalization(NamedTuple):
     match_ratio: torch.Tensor     # (B,)
 
 
+# The localize step's CUDA graphs (one per shape, MCL config, submap and
+# feature clouds).
+LOCALIZE_GRAPHS = GraphedStep("localize")
+
+
 def fleet_localize(state, dt, mcl_cfg=None, submap_ctx=None,
                    odom_drift_pos=None, odom_drift_yaw=None,
                    feature_map_pts=None, feature_ground_pts=None,
@@ -215,7 +222,10 @@ def fleet_localize(state, dt, mcl_cfg=None, submap_ctx=None,
     """Stage A's localization: with ``mcl_cfg`` and filters in the state,
     each robot's MCL update against the drifting odometry (true pose ∘
     drift), fed the feature clouds of its true pose; otherwise the true
-    pose is the planning pose."""
+    pose is the planning pose. On CUDA tensors the update replays as a
+    CUDA graph (:data:`LOCALIZE_GRAPHS`, keyed by the shapes, ``mcl_cfg``,
+    the submap and the feature clouds and keys); on CPU tensors it runs
+    eagerly."""
 
     b, dev = state.pos.shape[0], state.pos.device
     if state.mcl is None or mcl_cfg is None:
@@ -226,19 +236,58 @@ def fleet_localize(state, dt, mcl_cfg=None, submap_ctx=None,
                  else odom_drift_pos)
     drift_yaw = (torch.zeros((b,), device=dev) if odom_drift_yaw is None
                  else odom_drift_yaw)
-    odom_pos = state.pos + drift_pos
-    odom_quat = quat_multiply(state.quat, quat_from_yaw(drift_yaw))
+    tensors = (state.pos, state.quat, state.odom_prev_pos,
+               state.odom_prev_quat, drift_pos, drift_yaw,
+               torch.as_tensor(dt, dtype=torch.float32, device=dev),
+               *_mcl_leaves(state.mcl), *mcl_draws)
+
+    def step(*t):
+        return _localize_step(mcl_cfg, submap_ctx, feature_map_pts,
+                              feature_ground_pts, feature_keys_, *t)
+    if state.pos.is_cuda:
+        keys = feature_keys_ or ()
+        out = LOCALIZE_GRAPHS(
+            step, (mcl_cfg, id(submap_ctx), id(feature_map_pts),
+                   id(feature_ground_pts), tuple(id(k) for k in keys)),
+            tensors, keep=(submap_ctx, feature_map_pts, feature_ground_pts,
+                           keys))
+    else:
+        out = step(*tensors)
+    n = len(out) - len(FleetLocalization._fields) + 1
+    return FleetLocalization(_mcl_from_leaves(out[:n]), *out[n:])
+
+
+def _mcl_leaves(mcl: MCLState) -> tuple:
+    return (*mcl.particles, mcl.state_prev_pos, mcl.state_prev_quat,
+            *mcl.f_pos, *mcl.f_ang)
+
+
+def _mcl_from_leaves(leaves) -> MCLState:
+    n = len(PFState._fields)
+    return MCLState(PFState(*leaves[:n]), leaves[n], leaves[n + 1],
+                    Lpf3(*leaves[n + 2:n + 4]), Lpf3(*leaves[n + 4:n + 6]))
+
+
+def _localize_step(mcl_cfg, submap_ctx, feature_map_pts, feature_ground_pts,
+                   feature_keys_, pos, quat, odom_prev_pos, odom_prev_quat,
+                   drift_pos, drift_yaw, dt, *rest) -> tuple:
+    """:func:`fleet_localize`'s eager body: the leaves of the MCL state
+    and draws in ``rest``, the leaves of its FleetLocalization out. It
+    makes no host read and no host-to-device copy, so a CUDA graph can
+    capture it."""
+    n = len(rest) - len(MCLDraws._fields)
+    mcl, draws = _mcl_from_leaves(rest[:n]), MCLDraws(*rest[n:])
+    odom_pos = pos + drift_pos
+    odom_quat = quat_multiply(quat, quat_from_yaw(drift_yaw))
     flat, flat_ok, sharp, sharp_ok = device_features_from_map(
-        feature_map_pts, feature_ground_pts, state.pos, state.quat,
-        keys=feature_keys_)
+        feature_map_pts, feature_ground_pts, pos, quat, keys=feature_keys_)
     mcl2, mout = mcl_update(
-        mcl_cfg, submap_ctx, state.mcl, state.odom_prev_pos,
-        state.odom_prev_quat, odom_pos, odom_quat, dt, flat, flat_ok, sharp,
-        sharp_ok, torch.ones(sharp.shape[:2], device=dev), mcl_draws)
-    return FleetLocalization(mcl2, odom_pos, odom_quat, mout.pose_pos,
-                             mout.pose_quat,
-                             fma_norm(mout.pose_pos - state.pos),
-                             mout.match_ratio_max)
+        mcl_cfg, submap_ctx, mcl, odom_prev_pos, odom_prev_quat, odom_pos,
+        odom_quat, dt, flat, flat_ok, sharp, sharp_ok,
+        torch.ones(sharp.shape[:2], device=pos.device), draws)
+    return (*_mcl_leaves(mcl2), odom_pos, odom_quat, mout.pose_pos,
+            mout.pose_quat, fma_norm(mout.pose_pos - pos),
+            mout.match_ratio_max)
 
 
 def fleet_perceive(nav_cfg, spec, ri_spec, params, fmap, state,

@@ -14,6 +14,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from dddmr_navigation_tpu_torch.config import MCLConfig
@@ -129,9 +130,10 @@ def measure(state: PFState, likelihood) -> PFState:
 
 
 def _normal_likelihood(x, sigma: float):
-    """mcl_3dl::NormalLikelihood (nd.h), a = 1/sqrt(2π σ²)."""
-    a = float(1.0 / torch.tensor(2.0 * math.pi * sigma * sigma,
-                                 dtype=torch.float32).sqrt())
+    """mcl_3dl::NormalLikelihood (nd.h), a = 1/sqrt(2π σ²): an f32
+    constant worked out in numpy (the square root correctly rounded, as
+    ``jnp.sqrt``'s), so the update reads no tensor back to the host."""
+    a = recip(float(np.sqrt(np.float32(2.0 * math.pi * sigma * sigma))))
     return a * exp_fma(-x * x * recip(2.0 * sigma * sigma))
 
 

@@ -1,7 +1,8 @@
 """One run of a ``navbench`` cell with the port's span and counter recorder
 on (``dddmr_navigation_tpu_torch/runtime/tracing.py``), read into per-layer
 numbers: the layers' times a tick from the spans, host reads a tick, the
-mark/clear graph's captures and replays a tick, the share of marked cells
+mark/clear graph's (and the fleet's localize graph's) captures and
+replays a tick and captures over every tick, the share of marked cells
 past the cap, the cold first tick, and, with
 ``--trace 1``, the profiled ticks' device-idle time, kernel launches and
 CUDA sync-debug warnings by the innermost span open at each.
@@ -118,9 +119,13 @@ def span_metrics(kind, kept, roots, window, counters) -> dict:
     for key, names in layers.items():
         out[f"{kind}.span.{key}"] = layer_ms(kept, window, names)
     out[f"{kind}.host_reads_per_tick"] = reads_per_tick(kept, window)
-    for what in ("capture", "replay"):
-        out[f"{kind}.mark_clear_graph_{what}s_per_tick"] = reads_per_tick(
-            kept, window, f"mark_clear.graph_{what}")
+    graphs = ("mark_clear", "localize") if kind == "fleet" else ("mark_clear",)
+    for graph in graphs:
+        for what in ("capture", "replay"):
+            out[f"{kind}.{graph}_graph_{what}s_per_tick"] = reads_per_tick(
+                kept, window, f"{graph}.graph_{what}")
+        out[f"{kind}.{graph}_graph_captures"] = (reads_per_tick(
+            kept, roots, f"{graph}.graph_capture") or 0.0) * len(roots)
     if kind == "fleet" and counters.get("marked_cells"):
         out["fleet.marked_dropped_pct"] = 100.0 * (
             1.0 - counters["marked_kept"] / counters["marked_cells"])
