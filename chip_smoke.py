@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch port (dddmr_navigation_tpu_torch) on one CUDA
+"""Check of the PyTorch port (dddmr_navigation_tpu_torch) on one CUDA
 card, at the full width of the 64-robot headline fleet, the fused tick of
 bench config 3, the full-fidelity fleet of bench config 4 (also sharded
 over an NCCL process group), the single-robot navigation session, the
@@ -7,27 +7,24 @@ global localization from an unknown start), the SLAM vertical (one
 mapping run at ``SlamConfig()``'s full width, its map saved, edited and
 localized on) and semantic segmentation (the 19-class DDRNet-slim at
 240×320, its reroute chain and train step), with the runtime's
-checkpoints and traces.
+checkpoints and traces, and the mark/clear graph.
 
     python3 chip_smoke.py
 
-In order, and any failed check raises (exit code 1):
+It checks results and times nothing: the benchmark (``BENCHMARK.json``,
+``navbench/``) measures the port. In order, and any failed check raises
+(exit code 1):
   1. requires CUDA;
   2. builds the hand-written kernels from ``dddmr_navigation_tpu_torch/csrc``
-     (one nvcc per source, in parallel) and prints the build time and
-     ptxas's report; then holds each kernel, and its first kernel (``v1``),
-     against the plain PyTorch version, bit for bit, on the adversarial
-     inputs of ``ops/adversarial.py`` (seed ``ADVERSARIAL_SEED``);
-  3. holds each kernel and its v1 against its plain PyTorch version on the
-     card, on the inputs the headline chain gives it at ticks 0, 25 and
-     49: hits and distances equal bit for bit, and the plain hits must
-     hold both outcomes so that the comparison can fail; per tick, prints
-     the plain version's time, the bound (the least time the card could
-     take for this tick's calls on these inputs, and whether operations or
-     bytes set it), the share of pairs that survive the kernel's cull
-     (from its plain mirror), and the new kernel's and v1's time in turns
-     (v1, new, new, v1) by CUDA events and by the profiler's device time;
-     the redesign must be no slower than v1 in device time;
+     (one nvcc per source, in parallel) and prints ptxas's report; then
+     holds each kernel against the plain PyTorch version, bit for bit, on
+     the adversarial inputs of ``ops/adversarial.py`` (seed
+     ``ADVERSARIAL_SEED``);
+  3. holds each kernel against its plain PyTorch version on the card, on
+     the inputs the headline chain gives it at ticks 0, 25 and 49: hits and
+     distances equal bit for bit, and the plain hits must hold both
+     outcomes so that the comparison can fail; the distance kernel's
+     compacted point set (its plain mirror) must give the plain distances;
   4. runs the 64-robot, 50-tick chain on the kernel path and on the plain
      path: per-tick state codes, best indices and found counts must be
      equal, and the launch counters must show each kernel launched as
@@ -35,11 +32,7 @@ In order, and any failed check raises (exit code 1):
      calls per tick);
   5. holds tick 0, and the state codes of every tick of the chain, against
      the JAX package's golden file
-     (``dddmr_navigation_tpu_torch/testdata/headline_tick0.npz``);
-  6. times the chain tick by tick with CUDA events: median, p95 and p99 ms,
-     the spread of the per-chain medians, and rollouts/s, beside the card's
-     name and power limit; then profiles
-     a few ticks for device time by kernel and the device's busy share.
+     (``dddmr_navigation_tpu_torch/testdata/headline_tick0.npz``).
 
 Then the fused phase, bench config 3 (``bench.py::bench_config3``) at
 full width: the multi-level map (3,116 ground nodes, 16 direction bins), a
@@ -66,12 +59,7 @@ steps, one robot; any failed check raises:
  11. as step 3, on the fused tick's arguments at ticks 0, 10 and 19 of
      the chain run with one more box in the robot's path (config 3's own
      box is never in a rollout's way), so that the plain hits hold both
-     outcomes;
- 12. times the chain: tick median, p95 and p99 from CUDA events over
-     ``FUSED_CHAINS`` chains with the spread of the per-chain medians, the
-     time between stage boundaries (mark/clear; composition and prepare;
-     relaxation; extraction and interpolation; the local tick), host
-     syncs per tick, the plain path's median, a profile, and peak memory.
+     outcomes.
 
 Then the fleet phase, bench config 4 (``bench.py::bench_config4``) at full
 width: 64 robots on the 12×8 m warehouse floor (1,617 ground nodes), MCL
@@ -93,13 +81,7 @@ rotate recovery; any failed check raises:
      plan poses and MCL errors within 1e-5;
  16. as step 3, on the arguments of warm ticks 1 and 6 with four robots'
      obstacles replaced by a ring that every rollout hits, so that every
-     call shape (S = 289 and S = 2) holds both outcomes; by call shape its
-     launches per tick, device µs, bound and cull share;
- 17. times the cold tick and warm chains (median, p95, p99 from CUDA
-     events), the plain path, the stages (MCL; perceive+prepare;
-     relaxation; extraction+interpolation; simple local;
-     rotate+recovery+FSM), host syncs in a warm tick, a profile and peak
-     memory.
+     call shape (S = 289 and S = 2) holds both outcomes.
 
 Then the sharded phase, on the fleet phase's world, start state, draws
 and inputs (64 robots, full width); any failed check raises:
@@ -114,10 +96,7 @@ and inputs (64 robots, full width); any failed check raises:
      ``sharded_fleet_tick_multihost`` over a (1, 1) ``(dcn, ici)`` mesh
      equal to ``fleet_tick``, their reduced mean cost bit-equal;
  25. as step 3, on the sharded tick's arguments at ticks 1 and 2 with
-     four robots ringed; sharded and unsharded warm ticks timed in turns
-     (unsharded, sharded, sharded, unsharded) by CUDA events; a profile of
-     one sharded tick that must record each kernel as often as the tick
-     calls it; ``destroy_process_group``.
+     four robots ringed; ``destroy_process_group``.
 
 Then the session phase: one robot's ``NavigationSession`` through the
 session demo's scenario (``entry.session_scenario()``: the 14×8 m floor at
@@ -135,19 +114,15 @@ and a 0.2 m/s zone); any failed check raises:
      field within 1e-5;
  20. runs the scenario closed loop on the kernel path and on the plain
      path: equal bit for bit, SUCCESS within 0.6 m of the goal, more than
-     0.2 m from the wall, never inside the no-entry zone; times the ticks
-     (median, p95, p99) by CUDA events and their stages (perception,
-     depth, composition+lethal, plan manager, local tick, FSM) by the
-     tracing recorder's stage spans, and reads the peak memory of the
-     session ticks;
+     0.2 m from the wall, never inside the no-entry zone, both kernels
+     launched;
  21. as step 3, on the arguments of the align-heading ticks 3 and 4 (both
      generators run), tick 4's collision calls with a ring that every
      rollout hits: the simple call (1, 66, 64, K 2,048), the rotate call
      (1, 2, 256, K 2,048), the stick-path (1 × 4,224) and toward-plan
      (1 × 66) distance calls;
- 22. runs the session with the threaded plan manager to SUCCESS and
-     prints the plans its worker published; then host syncs by call site
-     in a replayed tick and a profile.
+ 22. runs the session with the threaded plan manager to SUCCESS, its
+     worker publishing plans.
 
 Then the localization phase (``entry.global_localization_scenario()``:
 the JAX package's box world, a 0.2 m submap, 2,048 seed particles × 16
@@ -169,13 +144,10 @@ any failed check raises:
  28. ``draw_seed`` covers [0, G) and [0, 16) exactly in 64 draws a node;
      closed loops from ``torch.Generator`` seeds ``LOC_SEEDS``, each
      seeded from its generator's draws: each reaches ``fixed``, at least
-     ``LOC_MIN_WITHIN`` within 1.0 m; the median tick time at each
-     particle count (CUDA events);
+     ``LOC_MIN_WITHIN`` within 1.0 m;
  29. ``preprocess_features`` (96 flat, 192 sharp) on the card equal to
-     the CPU's (masks exact, weights within 1e-6, normals within 1e-5) and
-     its host syncs; ``integrate_log`` of 1,000 steps within 1e-5 m of
-     the CPU's; host syncs and a profile of a tick at 2,048 and at 32
-     particles; peak memory.
+     the CPU's (masks exact, weights within 1e-6, normals within 1e-5);
+     ``integrate_log`` of 1,000 steps within 1e-5 m of the CPU's.
 
 Then the SLAM phase (``entry.slam_scenario()``: ``bench.py::bench_slam``'s
 16 m room with two boxes, ``SlamConfig()``: a 16×1,000 range image,
@@ -201,15 +173,7 @@ kernel); any failed check raises:
      the mapped route) from each of ``SLAM_LOC_SEEDS``: finite estimates,
      the median final error within ``SLAM_LOC_FINAL``; ``GraphEditor``
      load → ``add_icp_edge`` on the first loop pair → ``optimize`` →
-     ``save``, read back equal;
- 33. timing of step 31 by CUDA events: per scan median, p95 and p99
-     against the 10 Hz sweep (100 ms); by stage (frontend, odometry, map
-     refine, keyframe, loop closure) from the tracing recorder's stage
-     spans on the host clock; host syncs by call site in a
-     replayed plain, keyframe and loop-closure scan, and a profile (device
-     busy, kernels a scan, top device operations) of the plain and the
-     loop-closure one; peak memory;
- 34. the phase's wall time.
+     ``save``, read back equal.
 
 Then the semantic phase (``entry.semantic_scenario()``: the committed
 19-class DDRNet-slim artifact, net width 48, 240×320, ~1.43 M parameters,
@@ -234,14 +198,10 @@ convolutions run in cuDNN here); any failed check raises:
  37. 12 Adam steps on the card from the JAX train test's initial weights
      (stored in the golden file): the loss falls ≥ 10 %, each step's within
      2 % of JAX's;
- 38. frames/s at batch 1 and 8 (CUDA events, ``SEM_FRAMES_TIMED`` calls
-     each) beside the card's name and power limit, peak memory;
- 39. per batch size, a profile (device busy, kernels a call, top device
-     operations) and the host syncs of one call;
  40. ``entry.session_checkpoint_round_trip`` on the full session scenario
      (``runtime.CheckpointManager``: the restored session ticks as the
      original does) and ``runtime.tracing.trace`` writing a trace with the
-     card's kernels; the phase's wall time.
+     card's kernels.
 
 Then the mark/clear graph phase (``entry.mark_clear_scenario``: robots
 driving past two boxes on a 4 × 4 m floor, a 32 × 32 × 16 window, 12
@@ -254,65 +214,35 @@ ticks); any failed check raises:
      the recorder's; the recorder's marked-cell counters equal to the
      eager body's; a new map of equal tables captures a new graph.
 
-The line before the last is one JSON object with each kernel's route,
-source, launches, error, times and bound: ``launches`` counts the five
-kernel phases' chains (each counter set to 0 just before its chain and
-read just after; the session's is its kernel-path closed loop, the
-sharded phase's its three sharded ticks), ``max_abs_err`` is the largest
-over every check, ``ms``, ``plain_ms``, ``v1_ms``, ``bound_us``
-(``bound_ms``), ``device_us_per_tick`` and ``v1_device_us_per_tick`` add a
-headline tick's, a fused tick's, a fleet tick's, a sharded fleet tick's
-and a session check tick's calls, ``share_of_bound`` is bound over device
-time,
-``library_ms`` is null (no single PyTorch call computes either function),
-and ``paths`` gives each phase's own numbers, with ``full_bound_us``, the
-bound counted over every row and obstacle of the shapes, ``cull_keeps``
-and ``by_shape``. The last line is
-``{"ok": true, "device": {...}}``. TF32 is off and matmuls run at full
-f32 ("highest"): the fused tick's distance field and cluster sums are
-matmuls, as the JAX package runs them at Precision.HIGHEST.
+No step 6, 12, 17, 33, 34, 38 or 39: the benchmark measures the port, so
+this script times nothing, and the other steps keep the numbers that the
+documents cite. The last line is ``{"ok": true, "device": {...}}``. TF32
+is off and matmuls run at full f32 ("highest"): the fused tick's distance
+field and cluster sums are matmuls, as the JAX package runs them at
+Precision.HIGHEST.
 """
 import contextlib
 import json
 import math
 import os
-import subprocess
 import sys
-import time
-import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TICKS = 50
 ROBOTS = 64
-TIMED_CHAINS = 10
-KERNEL_REPS = 50
-PROFILED_TICKS = 5
 CHECK_TICKS = (0, TICKS // 2, TICKS - 1)   # kernel vs plain at these ticks
 PER_TICK = {"swept_box_hits": 1, "masked_min_distance": 2}   # launches
-TURNS = ("v1", "new", "new", "v1")   # kernel comparisons, in this order
-PROFILE_REPS = 10                    # repetitions of a tick's calls profiled
-PROFILE_TRIES = 4                    # profiles taken before a count fails
-PROFILE_LEAD = 64                    # lead launches that open a profile
 ADVERSARIAL_SEED = 3
-# Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): f32 outside
-# the tensor cores, and HBM3 bandwidth.
-PEAK_F32_FLOPS = 67.0e12
-PEAK_BYTES = 3.35e12
 
 FUSED_TICKS = 20                  # the golden chain's length
-FUSED_CHAINS = 6                  # timed chains of the fused phase
 FUSED_CHECK_TICKS = (0, 10, FUSED_TICKS - 1)
 # A box in the robot's path for the kernel checks only: config 3's own box
 # lies behind the robot, and no rollout of the chain reaches it.
 FUSED_CHECK_BOX = ((9.1, 7.6, 0.0), (9.5, 8.0, 1.0))
-FUSED_PROFILED_TICKS = 3
 
 FLEET_PER_TICK = {"swept_box_hits": 3, "masked_min_distance": 2}
 FLEET_CHECK_TICKS = (1, 6)        # kernel vs plain on these warm ticks
 FLEET_RING_ROBOTS = (0, 1, 2, 3)  # their recorded obstacles get a ring
-FLEET_CHAINS = 3                  # timed warm chains of the fleet phase
-FLEET_COLD_REPS = 3               # timed cold ticks
-FLEET_PROFILED_TICKS = 3
 FLEET_SEED = 4                    # the chains' torch.Generator seed
 FLEET_INT = ("decision", "cmd_source", "ps_simple", "ps_rotate", "plan_ok",
              "wf_iters", "best_index", "recovery_active")
@@ -320,7 +250,6 @@ FLEET_FLOAT = ("vx", "wz", "plan_pos", "plan_yaw", "mcl_err")
 
 SHARDED_TICKS = 3                 # the cold tick and two warm ones
 SHARDED_CHECK_TICKS = (1, 2)      # kernel vs plain on these sharded ticks
-SHARDED_TURNS = ("unsharded", "sharded", "sharded", "unsharded")
 PG_TIMEOUT_S = 120                # NCCL's init and collectives
 LOC_SEEDS = tuple(range(16))      # the closed loops' torch.Generator seeds
 # Global localization from a random start lands within the JAX test's
@@ -344,9 +273,6 @@ LOC_KEYFRAMES = ((-4.0, 0.0, 0.3), (-1.5, 0.0, -0.4), (1.5, 0.0, 1.1),
 LOC_SUBMAP_RADIUS = 3.0
 SESSION_CHECK_TICKS = (3, 4)      # align-heading ticks: both generators run
 SESSION_RING_TICK = 4             # its collision calls get the ring
-SESSION_PROFILED_TICKS = 5
-SESSION_STAGES = ("perception", "depth", "composition+lethal",
-                  "plan manager", "local tick", "FSM")
 # The teacher-forced SLAM replay against JAX: poses in metres and
 # quaternion components, the ICP fitness relative (the CPU holds 1.7e-6
 # over all 56 scans).
@@ -375,8 +301,6 @@ SLAM_LOC_FINAL = 3.59
 # (tests/test_torch_semantic.py).
 SEM_LOGITS_TOL = 0.05
 SEM_FLIP_SHARE = 5e-4             # class flips, share of the pixels
-SEM_FRAMES_TIMED = 50             # calls timed at each batch size
-SEM_PROFILED_CALLS = 5
 SEM_CKPT_TICKS = 4                # session ticks before the checkpoint
 
 
@@ -387,22 +311,6 @@ def fail(msg):
 def check(cond, msg):
     if not cond:
         fail(msg)
-
-
-def cuda_ms(fn, reps):
-    """Mean ms per call of ``fn`` over ``reps`` calls, from CUDA events,
-    after two warm-up calls."""
-    import torch
-    for _ in range(2):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 @contextlib.contextmanager
@@ -434,154 +342,44 @@ def recorder_pair(check_ticks, per_tick=PER_TICK):
     return recorder, calls
 
 
-def call_all(fn, calls):
-    for _, args in calls:
-        fn(*args)
-
-
-def profiled(run, activities):
-    """The profiler's ``key_averages()`` of one call of ``run``, after
-    PROFILE_LEAD launches of a lead kernel (``erfcx`` of one element, which
-    no tick runs) inside the same profile. On the H100 the profiler loses
-    a profile's first device records, whichever kernels they are: 1 to 6
-    of them, more the later in the run. The lead launches take that loss;
-    :func:`is_lead` tells their records apart."""
-    import torch
-    from torch.profiler import profile
-    one = torch.zeros(1, device="cuda")
-    torch.cuda.synchronize()
-    with profile(activities=activities) as prof:
-        for _ in range(PROFILE_LEAD):
-            torch.special.erfcx(one)
-        torch.cuda.synchronize()
-        run()
-        torch.cuda.synchronize()
-    return prof.key_averages()
-
-
-def is_lead(ev):
-    return "erfcx" in ev.key
-
-
-def device_us(fn, calls, key, reps):
-    """Device µs of the kernels whose name holds ``key`` over ``reps``
-    runs of ``calls``, from the profiler. A profile must record every
-    launch made; one that does not is taken again, PROFILE_TRIES times at
-    most, and then the run fails."""
-    import torch
-    from torch.profiler import ProfilerActivity
-    expected = reps * len(calls)
-
-    def run():
-        for _ in range(reps):
-            call_all(fn, calls)
-    for _ in range(PROFILE_TRIES):
-        mine = [ev for ev in profiled(run, [ProfilerActivity.CUDA])
-                if ev.device_type == torch.autograd.DeviceType.CUDA
-                and key in ev.key]
-        n = sum(ev.count for ev in mine)
-        if n == expected:
-            return sum(ev.self_device_time_total for ev in mine)
-        print(f"profile of {key}: {n} of {expected} launches recorded; "
-              f"profiling again")
-    fail(f"the profiler recorded {n} of {expected} launches of {key}")
-
-
-def bound_us(name, args):
-    """The least time the card could take for one call on these inputs,
-    in µs, and what sets it: the larger of the operations this call's data
-    needs over the f32 peak (21 flops a point-box test of a valid step
-    against a valid obstacle; 8 a distance of an unmasked query to a valid
-    point) and its bytes over the memory rate (each input read once, the
-    step axes and centers and the queries of valid rows only, each output
-    written once)."""
-    if name == "swept_box_hits":
-        axes, projc, step_valid, obs, obs_valid, _half = args
-        rows = step_valid.sum(dim=(1, 2)).double()
-        ops = 21.0 * float((rows * obs_valid.sum(1).double()).sum())
-        nbytes = (step_valid.numel() + 48.0 * float(rows.sum())
-                  + 13.0 * obs_valid.numel() + step_valid.shape[0]
-                  * step_valid.shape[1])
-    else:
-        queries, q_mask, points, p_mask = args
-        nq = q_mask.sum(1).double()
-        ops = 8.0 * float((nq * p_mask.sum(1).double()).sum())
-        nbytes = (q_mask.numel() + 12.0 * float(nq.sum()) + p_mask.numel()
-                  + 12.0 * float(p_mask.sum()) + 4.0 * q_mask.numel())
-    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e6, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
-
-
-def full_bound_us(name, args):
-    """The same bound counted over every row and obstacle (every query and
-    point) of the call's shapes, valid or not: the figure the redesign's
-    target was set against."""
-    import torch
-    masks = (2, 4) if name == "swept_box_hits" else (1, 3)
-    return bound_us(name, [torch.ones_like(a) if i in masks else a
-                           for i, a in enumerate(args)])[0]
-
-
-def cull_share(name, args):
-    """The share of (row, obstacle) pairs that survive the collision
-    kernel's cull, or of (robot, point) pairs the distance kernel computes,
-    from their plain mirrors; for the distance kernel also checks that the
-    mirror's result equals the plain version."""
-    import torch
-    from dddmr_navigation_tpu_torch.ops.collision import (
-        cull_survivor_fraction)
+def check_compacted(torch, args):
+    """The distance kernel computes only the valid points, and the parking
+    point once: that point set, from its plain mirror, must give the plain
+    version's distances."""
     from dddmr_navigation_tpu_torch.ops.distance_field import (
         masked_min_distance_compacted_plain, masked_min_distance_plain)
-    if name == "swept_box_hits":
-        return cull_survivor_fraction(*args)
-    staged, out = masked_min_distance_compacted_plain(*args)
+    _, out = masked_min_distance_compacted_plain(*args)
     check(torch.equal(out, masked_min_distance_plain(*args)),
           "the distance kernel's compacted point set changed a distance")
-    return float(staged.sum()) / staged.numel() / args[2].shape[1]
 
 
 def check_kernels(kernels, calls, check_ticks, per_tick=PER_TICK):
-    """Each kernel, and its first kernel (v1), against its plain version on
-    the recorded arguments, bit for bit (hits and distances), and the plain
-    hits of each call shape must hold both outcomes over the checked
-    ticks. Then per tick (all of a tick's calls, averaged over
-    ``check_ticks``): the plain version's ms; the new kernel's and v1's ms
-    from CUDA events and device µs from the profiler, in turns (TURNS),
-    where the redesign must be no slower than v1; the bound; the cull's
-    survivor share; and the same by call shape (``by_shape``). Returns
-    {name: dict}."""
+    """Each kernel against its plain version on the recorded arguments,
+    bit for bit (hits and distances); the plain hits of each call shape
+    must hold both outcomes over the checked ticks, and the distance
+    kernel's compacted point set must give the plain distances."""
     import torch
     check(all(len(calls[k]) == per_tick[k] * len(check_ticks)
               for k in calls),
           f"unexpected kernel calls per tick: "
           f"{ {k: len(v) for k, v in calls.items()} }")
-    n_ticks = len(check_ticks)
-    stats = {}
     for name, k in kernels.items():
-        st = stats[name] = dict(max_abs_err=0.0, plain_ms=0.0, bound_us=0.0)
-        by_shape = {}
-        bounds, culls = [], []
+        outcomes = {}
         for t, args in calls[name]:
-            got, v1 = k["kernel"](*args), k["v1"](*args)
+            got = k["kernel"](*args)
             want = k["plain"](*args)
             torch.cuda.synchronize()
             check(got.shape == want.shape and got.dtype == want.dtype,
                   f"{name}: {got.shape}/{got.dtype} vs plain "
                   f"{want.shape}/{want.dtype}")
-            check(torch.equal(v1, want), f"{name} v1 tick {t}: differs from "
-                  f"plain")
-            shape = "x".join(str(d) for d in args[0].shape[:3])
-            sh = by_shape.setdefault(shape, dict(
-                hits=0, total=0, bound_us=0.0, cull=[], calls=[],
-                launches_per_tick=0))
-            sh["calls"].append((t, args))
             if got.dtype == torch.bool:
-                err = float((got != want).sum())
-                check(err == 0, f"{name} tick {t}: {int(err)} hits differ "
+                err = int((got != want).sum())
+                check(err == 0, f"{name} tick {t}: {err} hits differ "
                       f"from plain")
-                sh["hits"] += int(want.sum())
-                sh["total"] += want.numel()
+                shape = "x".join(str(d) for d in args[0].shape[:3])
+                hits, total = outcomes.get(shape, (0, 0))
+                outcomes[shape] = (hits + int(want.sum()),
+                                   total + want.numel())
                 what = f"{int(want.sum())}/{want.numel()} hits"
             else:
                 check(bool((want < 1e6).any()),
@@ -589,85 +387,23 @@ def check_kernels(kernels, calls, check_ticks, per_tick=PER_TICK):
                 err = float((got - want).abs().max())
                 check(torch.equal(got, want), f"{name} tick {t}: distances "
                       f"differ from plain (max abs {err!r})")
+                check_compacted(torch, args)
                 what = f"{int((want < 1e6).sum())}/{want.numel()} unmasked"
-            plain_ms = cuda_ms(lambda: k["plain"](*args), KERNEL_REPS)
-            b_us, b_by = bound_us(name, args)
-            st["full_bound_us"] = (st.get("full_bound_us", 0.0)
-                                   + full_bound_us(name, args) / n_ticks)
-            cull = cull_share(name, args)
-            bounds.append((b_us, b_by))
-            culls.append(cull)
-            sh["bound_us"] += b_us / n_ticks
-            sh["cull"].append(cull)
             shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
-            print(f"{name} tick {t} {shapes} ({what}): equal to plain, v1 "
-                  f"equal to plain; plain {plain_ms:.4f} ms; bound "
-                  f"{b_us:.2f} us ({b_by}); cull keeps {cull:.4f}")
-            st["max_abs_err"] = max(st["max_abs_err"], err)
-            st["plain_ms"] += plain_ms / n_ticks
-            st["bound_us"] += b_us / n_ticks
-        st["bound_by"] = max(bounds)[1]       # the largest tick's
-        st["cull_keeps"] = sum(culls) / len(culls)
-        if name == "swept_box_hits":
-            # both outcomes occur at every call shape, so a kernel that
-            # never (or always) hits disagrees with the plain version above
-            for shape, sh in by_shape.items():
-                check(0 < sh["hits"] < sh["total"], f"{name} {shape}: the "
-                      f"plain version gives {sh['hits']}/{sh['total']} hits "
-                      f"at ticks {check_ticks}; the comparison could not "
-                      f"fail")
-        # new kernel and v1 in turns: CUDA events, then the profiler
-        fns = {"new": (k["kernel"], f"{name}_kernel"),
-               "v1": (k["v1"], f"{name}_v1_kernel")}
-        ms = {"new": [], "v1": []}
-        dev = {"new": [], "v1": []}
-        for turn in TURNS:
-            fn, key = fns[turn]
-            ms[turn].append(cuda_ms(lambda: call_all(fn, calls[name]),
-                                    KERNEL_REPS) / n_ticks)
-            dev[turn].append(device_us(fn, calls[name], key, PROFILE_REPS)
-                             / (PROFILE_REPS * n_ticks))
-        st["ms"] = sum(ms["new"]) / 2
-        st["v1_ms"] = sum(ms["v1"]) / 2
-        st["device_us_per_tick"] = sum(dev["new"]) / 2
-        st["v1_device_us_per_tick"] = sum(dev["v1"]) / 2
-        st["share_of_bound"] = st["bound_us"] / st["device_us_per_tick"]
-        st["by_shape"] = {}
-        for shape, sh in by_shape.items():
-            d_us = (device_us(k["kernel"], sh["calls"], f"{name}_kernel",
-                              PROFILE_REPS) / (PROFILE_REPS * n_ticks))
-            st["by_shape"][shape] = dict(
-                launches_per_tick=len(sh["calls"]) // n_ticks,
-                bound_us=sh["bound_us"], device_us_per_tick=d_us,
-                share_of_bound=sh["bound_us"] / d_us,
-                cull_keeps=sum(sh["cull"]) / len(sh["cull"]))
-            print(f"{name} {shape}: {len(sh['calls']) // n_ticks} launches "
-                  f"per tick, device {d_us:.2f} us/tick, bound "
-                  f"{sh['bound_us']:.2f} us, share of bound "
-                  f"{sh['bound_us'] / d_us!r}, cull keeps "
-                  f"{st['by_shape'][shape]['cull_keeps']:.4f}")
-        print(f"{name} per tick ({per_tick[name]} launches): turns "
-              f"{'/'.join(TURNS)}: CUDA events "
-              + "/".join(f"{m:.4f}" for m in (ms["v1"][0], ms["new"][0],
-                                              ms["new"][1], ms["v1"][1]))
-              + " ms; device "
-              + "/".join(f"{d:.2f}" for d in (dev["v1"][0], dev["new"][0],
-                                              dev["new"][1], dev["v1"][1]))
-              + f" us; bound {st['bound_us']:.2f} us ({st['bound_by']}); "
-              f"share of bound {st['share_of_bound']!r}; cull keeps "
-              f"{st['cull_keeps']:.4f}")
-        check(st["device_us_per_tick"] <= st["v1_device_us_per_tick"],
-              f"{name}: the redesign ({st['device_us_per_tick']:.2f} us/tick)"
-              f" is slower than v1 ({st['v1_device_us_per_tick']:.2f} "
-              f"us/tick)")
-    return stats
+            print(f"{name} tick {t} {shapes} ({what}): equal to plain")
+        # both outcomes occur at every call shape, so a kernel that never
+        # (or always) hits disagrees with the plain version above
+        for shape, (hits, total) in outcomes.items():
+            check(0 < hits < total, f"{name} {shape}: the plain version "
+                  f"gives {hits}/{total} hits at ticks {check_ticks}; the "
+                  f"comparison could not fail")
 
 
 def adversarial_checks(torch, dev, kernels):
-    """Each kernel and its v1 against the plain version on the adversarial
-    inputs of ``ops/adversarial.py`` (faces, corners, the cull's sphere
-    radius ± its margin, ±1 ulp around minima, all-invalid sets, 100 m
-    coordinates), bit for bit."""
+    """Each kernel against the plain version on the adversarial inputs of
+    ``ops/adversarial.py`` (faces, corners, the cull's sphere radius ± its
+    margin, ±1 ulp around minima, all-invalid sets, 100 m coordinates),
+    bit for bit."""
     from dddmr_navigation_tpu_torch.ops import adversarial
     box = [torch.as_tensor(a, device=dev)
            for a in adversarial.box_inputs(ADVERSARIAL_SEED)]
@@ -678,42 +414,18 @@ def adversarial_checks(torch, dev, kernels):
                 for q in (1000, 40000)]}     # the narrow and wide variants
     for name, k in kernels.items():
         for args in sets[name]:
-            got, v1 = k["kernel"](*args), k["v1"](*args)
+            got = k["kernel"](*args)
             want = k["plain"](*args)
             torch.cuda.synchronize()
-            check(torch.equal(got, want) and torch.equal(v1, want),
+            check(torch.equal(got, want),
                   f"{name}: differs from plain on adversarial inputs")
             if name == "swept_box_hits":
                 check(0 < int(want.sum()) < want.numel(),
                       "adversarial hits hold one outcome only")
+            else:
+                check_compacted(torch, args)
             shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
-            print(f"adversarial {name} {shapes}: kernel and v1 equal to "
-                  f"plain; cull keeps {cull_share(name, args):.4f}")
-
-
-def sync_sites(torch, fn):
-    """Run ``fn`` with CUDA's sync debug mode on; returns ({call site:
-    host syncs}, fn's result)."""
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            out = fn()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    sites = {}
-    for w in caught:
-        if "synchroniz" in str(w.message):
-            site = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
-            sites[site] = sites.get(site, 0) + 1
-    return sites, out
-
-
-def site_text(sites):
-    """``sync_sites``' call sites, the most syncs first."""
-    return ", ".join(f"{k} x{v}" for k, v in sorted(
-        sites.items(), key=lambda kv: -kv[1])) or "none"
+            print(f"adversarial {name} {shapes}: kernel equal to plain")
 
 
 def reset_launches(ops):
@@ -724,48 +436,6 @@ def reset_launches(ops):
 def read_launches(ops):
     return {"swept_box_hits": ops.swept_box_hits.launches,
             "masked_min_distance": ops.masked_min_distance.launches}
-
-
-def profile_ticks(step, n, kernel_names):
-    """Device time by kernel over ``n`` calls of ``step`` (one tick each)
-    and the device's busy share of that window."""
-    import torch
-    from torch.profiler import ProfilerActivity
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-
-    def timed():
-        e0.record()
-        for _ in range(n):
-            step()
-        e1.record()
-    averages = profiled(timed, [ProfilerActivity.CPU,
-                                ProfilerActivity.CUDA])
-    window_us = e0.elapsed_time(e1) * 1e3
-    device = [(ev.key, ev.self_device_time_total, ev.count)
-              for ev in averages
-              if ev.device_type == torch.autograd.DeviceType.CUDA
-              and not is_lead(ev)]
-    busy_us = sum(t for _, t, _ in device)
-    n_kernels = sum(c for _, _, c in device)
-    if busy_us <= 0:
-        print("profile: no device time recorded (device busy share not "
-              "measured)")
-        return
-    lead = sum(ev.count for ev in averages
-               if ev.device_type == torch.autograd.DeviceType.CUDA
-               and is_lead(ev))
-    print(f"profile ({n} ticks): device busy {busy_us / n:.1f} us/tick of "
-          f"{window_us / n:.1f} us/tick ({100 * busy_us / window_us:.1f}% "
-          f"busy), {n_kernels / n:.0f} device kernels per tick; "
-          f"{lead} of {PROFILE_LEAD} lead launches recorded")
-    for key, t, c in sorted(device, key=lambda d: -d[1])[:10]:
-        print(f"  {t / n:9.1f} us/tick  {c / n:5.1f} calls/tick  {key[:90]}")
-    for name in kernel_names:
-        mine = [(t, c) for key, t, c in device if f"{name}_kernel" in key]
-        t, c = sum(m[0] for m in mine), sum(m[1] for m in mine)
-        print(f"  kernel {name}: device {t / n:.1f} us/tick over "
-              f"{c / n:.0f} launches/tick")
 
 
 def main():
@@ -789,93 +459,42 @@ def main():
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     # 2. build
-    t0 = time.perf_counter()
     lib_path, report = build.build()
     build.load_library()
-    print(f"build: {time.perf_counter() - t0:.2f} s -> "
-          f"{os.path.relpath(lib_path, ROOT)}")
+    print(f"build: {os.path.relpath(lib_path, ROOT)}")
     for line in report.splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    card = smi.stdout.strip().splitlines()[0]
-
     kernels = {
-        "swept_box_hits": dict(
-            kernel=ops.swept_box_hits, plain=ops.swept_box_hits_plain,
-            v1=ops.swept_box_hits_v1,
-            source="dddmr_navigation_tpu_torch/csrc/swept_box_hits.cu",
-            replaces="dddmr_navigation_tpu/ops/collision.py:122"),
-        "masked_min_distance": dict(
-            kernel=ops.masked_min_distance,
-            plain=ops.masked_min_distance_plain,
-            v1=ops.masked_min_distance_v1,
-            source="dddmr_navigation_tpu_torch/csrc/masked_min_distance.cu",
-            replaces="dddmr_navigation_tpu/ops/distance_field.py:91"),
+        "swept_box_hits": dict(kernel=ops.swept_box_hits,
+                               plain=ops.swept_box_hits_plain),
+        "masked_min_distance": dict(kernel=ops.masked_min_distance,
+                                    plain=ops.masked_min_distance_plain),
     }
     adversarial_checks(torch, dev, kernels)
     shared = {}
-    paths = {"headline": headline_phase(np, torch, dev, entry, ops, kernels,
-                                        card),
-             "fused": fused_phase(np, torch, dev, entry, ops, kernels, card),
-             "fleet": fleet_phase(np, torch, dev, entry, ops, kernels, card,
-                                  shared)}
-    paths["sharded"] = sharded_phase(np, torch, dev, entry, ops, kernels,
-                                     card, shared)
+    headline_phase(np, torch, dev, entry, ops, kernels)
+    fused_phase(np, torch, dev, entry, ops, kernels)
+    fleet_phase(np, torch, dev, entry, ops, kernels, shared)
+    sharded_phase(torch, entry, ops, kernels, shared)
     shared.clear()
-    paths["session"] = session_phase(np, torch, dev, entry, ops, kernels,
-                                     card)
-    localization_phase(np, torch, dev, entry, card)
-    slam_phase(np, torch, dev, entry, card)
-    semantic_phase(np, torch, dev, entry, card)
+    session_phase(np, torch, dev, entry, ops, kernels)
+    localization_phase(np, torch, dev, entry)
+    slam_phase(np, torch, dev, entry)
+    semantic_phase(np, torch, dev, entry)
     mark_clear_graph_phase(torch, dev, entry)
 
-    print(card)
-    out = []
-    for name, k in kernels.items():
-        per = {p: paths[p][name] for p in paths}
-
-        def total(key):
-            return sum(v[key] for v in per.values())
-        bound = total("bound_us")
-        device = total("device_us_per_tick")
-        out.append({
-            "name": name, "route": "cuda", "source": k["source"],
-            "replaces": k["replaces"],
-            "launches": total("launches"),
-            "max_abs_err": max(v["max_abs_err"] for v in per.values()),
-            "ms": total("ms"), "plain_ms": total("plain_ms"),
-            "bound_ms": bound / 1e3,
-            "bound_by": max((v["bound_us"], v["bound_by"])
-                            for v in per.values())[1],
-            "library_ms": None,     # no single PyTorch call computes it
-            "bound_us": bound, "device_us_per_tick": device,
-            "share_of_bound": bound / device,
-            "v1_device_us_per_tick": total("v1_device_us_per_tick"),
-            "v1_ms": total("v1_ms"),
-            "launches_per_tick": {
-                "headline": PER_TICK[name], "fused": PER_TICK[name],
-                "fleet": FLEET_PER_TICK[name],
-                "sharded": FLEET_PER_TICK[name],
-                "session": paths["session"][name]["launches_per_tick"]},
-            "paths": per})
-    print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
 
-def headline_phase(np, torch, dev, entry, ops, kernels, card):
-    """Steps 3-6: the 64-robot headline chain. Returns {kernel name:
-    dict(launches, and check_kernels' numbers)}."""
+def headline_phase(np, torch, dev, entry, ops, kernels):
+    """Steps 3-5: the 64-robot headline chain."""
     cfg = entry.headline_config()
     plans, state, obstacles, obs_valid = entry.headline_inputs(
         cfg, ROBOTS, dev)
-    samples = cfg.generator.n_samples_padded
 
     # 3. each kernel against its plain version, on the arguments the chain
     # gives it at CHECK_TICKS. Tick 0's collision sweep cannot hit anything
@@ -888,7 +507,7 @@ def headline_phase(np, torch, dev, entry, ops, kernels, card):
         entry.run_chain(cfg, plans, state, obstacles, obs_valid,
                         max(CHECK_TICKS) + 1)
     torch.cuda.synchronize()
-    stats = check_kernels(kernels, calls, CHECK_TICKS)
+    check_kernels(kernels, calls, CHECK_TICKS)
 
     # 4. the 50-tick chain, through the kernels, then through the plain
     # versions; the launch counters are read around the kernel run only
@@ -939,80 +558,22 @@ def headline_phase(np, torch, dev, entry, ops, kernels, card):
     print(f"golden chain: all {codes.size} state codes of the {TICKS}-tick "
           f"chain equal JAX's")
 
-    # 6. per-tick time, CUDA events around each tick
-    def timed(n_chains):
-        """Per-tick ms (n_chains × TICKS, chain by chain) and host wall ms
-        per tick of each chain."""
-        per_tick, wall = [], []
-        for _ in range(n_chains):
-            s = state
-            events = []
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(TICKS):
-                e0 = torch.cuda.Event(enable_timing=True)
-                e1 = torch.cuda.Event(enable_timing=True)
-                e0.record()
-                s, _cmd = entry.tick(cfg, plans, s, obstacles, obs_valid)
-                e1.record()
-                events.append((e0, e1))
-            torch.cuda.synchronize()
-            wall.append((time.perf_counter() - t0) / TICKS * 1e3)
-            per_tick += [a.elapsed_time(b) for a, b in events]
-        return np.asarray(per_tick), np.asarray(wall)
 
-    timed(1)                                      # warm-up
-    ticks_ms, wall_ms = timed(TIMED_CHAINS)
-    with critics_calling(ops.swept_box_hits_plain,
-                         ops.masked_min_distance_plain):
-        plain_ms, _ = timed(2)
-    med = float(np.median(ticks_ms))
-    print(f"tick ({ROBOTS} robots x {samples} samples, kernel path, "
-          f"n={ticks_ms.size}): median {med!r} ms, p95 "
-          f"{float(np.percentile(ticks_ms, 95))!r} ms, p99 "
-          f"{float(np.percentile(ticks_ms, 99))!r} ms, host wall per tick "
-          f"median {float(np.median(wall_ms))!r} ms; "
-          f"{ROBOTS * samples / med * 1e3:.0f} rollouts/s; "
-          f"plain path median {float(np.median(plain_ms))!r} ms "
-          f"(n={plain_ms.size}); card {card}")
-    chain_medians = np.median(ticks_ms.reshape(TIMED_CHAINS, TICKS), axis=1)
-    print(f"per-chain tick medians ({TIMED_CHAINS} chains, kernel path): "
-          f"min {float(chain_medians.min())!r} ms, max "
-          f"{float(chain_medians.max())!r} ms, max/min "
-          f"{float(chain_medians.max() / chain_medians.min())!r}")
-    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f}"
-          f" MiB")
-
-    # where a tick's device time goes: kernel time by name over a window
-    # of PROFILED_TICKS ticks, and the device's busy share of that window
-    s = [state]
-
-    def step():
-        s[0], _cmd = entry.tick(cfg, plans, s[0], obstacles, obs_valid)
-    profile_ticks(step, PROFILED_TICKS, kernels)
-    return {name: dict(launches=launches[name], **stats[name])
-            for name in kernels}
-
-
-def fused_phase(np, torch, dev, entry, ops, kernels, card):
-    """Steps 7-12: bench config 3's fused tick at full width. Returns
-    {kernel name: dict(launches, and check_kernels' numbers)}."""
-    from dddmr_navigation_tpu_torch.control import fused as tf
+def fused_phase(np, torch, dev, entry, ops, kernels):
+    """Steps 7-11: bench config 3's fused tick at full width."""
     from dddmr_navigation_tpu_torch.planning.global_ import wavefront as tw
 
-    torch.cuda.reset_peak_memory_stats()
     g = np.load(os.path.join(ROOT, "dddmr_navigation_tpu_torch", "testdata",
                              "config3_golden.npz"))
 
     # 7. build
-    t0 = time.perf_counter()
     cfg = entry.config3_config()
     c3 = entry.config3_inputs(cfg, dev)
     fm = c3.fmap
     gp, p, lp = cfg.global_planner, cfg.perception, cfg.local_planner
     n_nodes, k_nbr = fm.nbr_idx.shape
-    print(f"fused: config 3 built in {time.perf_counter() - t0:.2f} s: "
-          f"G={n_nodes} ground nodes, K={k_nbr} neighbors, "
+    print(f"fused: config 3 built: G={n_nodes} ground nodes, K={k_nbr} "
+          f"neighbors, "
           f"{gp.turning_dir_bins} direction bins; window "
           f"{p.voxel_window_cells_xy}x{p.voxel_window_cells_xy}x"
           f"{p.voxel_window_cells_z} = {p.voxel_window_cells_xy ** 2 * p.voxel_window_cells_z}"
@@ -1092,8 +653,8 @@ def fused_phase(np, torch, dev, entry, ops, kernels, card):
                                              "w_in")]
     state0 = entry.config3_state(c3)
 
-    def run(tick=None, sc=scans, ms=masks):
-        return entry.run_fused_chain(c3, state0, sc, ms, *poses, tick=tick)
+    def run():
+        return entry.run_fused_chain(c3, state0, scans, masks, *poses)
 
     reset_launches(ops)
     chain = run()
@@ -1165,118 +726,7 @@ def fused_phase(np, torch, dev, entry, ops, kernels, card):
                               box_masks[:n_check],
                               *(x[:n_check] for x in poses))
     torch.cuda.synchronize()
-    stats = check_kernels(kernels, calls, FUSED_CHECK_TICKS)
-
-    # 12. timing: CUDA events around each tick
-    def timed(n_chains):
-        per_tick, wall = [], []
-        for _ in range(n_chains):
-            events = []
-
-            def tick(*args):
-                e0 = torch.cuda.Event(enable_timing=True)
-                e1 = torch.cuda.Event(enable_timing=True)
-                e0.record()
-                out = c3.tick(*args)
-                e1.record()
-                events.append((e0, e1))
-                return out
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            run(tick)
-            torch.cuda.synchronize()
-            wall.append((time.perf_counter() - t0) / FUSED_TICKS * 1e3)
-            per_tick += [a.elapsed_time(b) for a, b in events]
-        return np.asarray(per_tick), np.asarray(wall)
-
-    timed(1)                                      # warm-up
-    ticks_ms, wall_ms = timed(FUSED_CHAINS)
-    with critics_calling(ops.swept_box_hits_plain,
-                         ops.masked_min_distance_plain):
-        plain_ms, _ = timed(2)
-    med = float(np.median(ticks_ms))
-    chain_medians = np.median(ticks_ms.reshape(FUSED_CHAINS, FUSED_TICKS), 1)
-    print(f"fused tick (1 robot, {lp.generator.n_samples_padded} samples, "
-          f"kernel path, n={ticks_ms.size}): median {med!r} ms, p95 "
-          f"{float(np.percentile(ticks_ms, 95))!r} ms, p99 "
-          f"{float(np.percentile(ticks_ms, 99))!r} ms, host wall per tick "
-          f"median {float(np.median(wall_ms))!r} ms; per-chain medians "
-          f"min {float(chain_medians.min())!r} max "
-          f"{float(chain_medians.max())!r} ms ({FUSED_CHAINS} chains); plain "
-          f"path median {float(np.median(plain_ms))!r} ms "
-          f"(n={plain_ms.size}); card {card}")
-
-    # time between stage boundaries, the tick's own stages with an event
-    # between each (host-bound stages include the device's wait for the
-    # host); the same calls as fused_tick
-    _, spec, ri_spec, params = tf.make_fused_tick(cfg)
-    stage_names = ("mark/clear", "composition+prepare", "relaxation",
-                   "extraction+interpolation", "local tick")
-    stage_events = []
-
-    def staged_tick(fmap, state, scan, mask, pos, quat, offset, goal, v, w):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-        ev[0].record()
-        marking, scan_global = tf.fused_perceive(
-            spec, ri_spec, params, fmap, state, scan, mask, pos, quat, offset)
-        ev[1].record()
-        pre = tf.fused_prepare(cfg, fmap, state, marking, scan_global, pos,
-                               goal)
-        ev[2].record()
-        dist, bins_, iters_ = tf.fused_relax(cfg, fmap, pre)
-        ev[3].record()
-        res, stall = tf.fused_finish(cfg, fmap, pre, state, dist, bins_,
-                                     iters_)
-        plan = tf.interpolate_path_device(fmap.ground, res,
-                                          max_plan_len=lp.max_plan_len)
-        ev[4].record()
-        out = tf.fused_local(cfg, "differential_drive_simple", pre, res, plan,
-                             mask, pos, quat, v, w, stall)
-        ev[5].record()
-        stage_events.append(ev)
-        return out
-
-    staged = run(staged_tick)
-    check(torch.equal(staged.state, chain.state)
-          and torch.equal(staged.best_index, chain.best_index),
-          "the staged tick differs from fused_tick")
-    stage_events.clear()
-    for _ in range(3):
-        run(staged_tick)
-    torch.cuda.synchronize()
-    per_stage = np.asarray([[ev[i].elapsed_time(ev[i + 1]) for i in range(5)]
-                            for ev in stage_events])
-    print("fused stages, median ms per tick over "
-          f"{len(stage_events)} ticks (CUDA events between stages): "
-          + "; ".join(f"{n} {float(np.median(per_stage[:, i])):.3f}"
-                      for i, n in enumerate(stage_names))
-          + f"; relaxation iterations per tick "
-          f"{chain.wf_iters[:, 0].tolist()}")
-
-    # host syncs in one warm tick (tick 1 of the chain)
-    state1, _ = c3.tick(fm, state0, scans[0], masks[0],
-                        *(x[0] for x in poses[:2]), on_dev(c3.offset),
-                        on_dev(c3.goal)[None], *(x[0] for x in poses[2:]))
-    sites, (_, out1) = sync_sites(torch, lambda: c3.tick(
-        fm, state1, scans[1], masks[1], *(x[1] for x in poses[:2]),
-        on_dev(c3.offset), on_dev(c3.goal)[None], *(x[1] for x in poses[2:])))
-    print(f"host syncs in tick 1: {sum(sites.values())} (relaxation "
-          f"{int(out1.wf_iters[0])} iterations); by call site: "
-          f"{site_text(sites)}")
-
-    s = [state0, 0]
-
-    def step():                   # the chain's ticks 0, 1, ... in turn
-        t = s[1]
-        s[0], _ = c3.tick(fm, s[0], scans[t], masks[t],
-                          *(x[t] for x in poses[:2]), on_dev(c3.offset),
-                          on_dev(c3.goal)[None], *(x[t] for x in poses[2:]))
-        s[1] += 1
-    profile_ticks(step, FUSED_PROFILED_TICKS, kernels)
-    print(f"fused peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    return {name: dict(launches=launches[name], **stats[name])
-            for name in kernels}
+    check_kernels(kernels, calls, FUSED_CHECK_TICKS)
 
 
 def with_ring(name, args, robots):
@@ -1300,28 +750,24 @@ def with_ring(name, args, robots):
     return axes, projc, step_valid, obs, obs_valid, half
 
 
-def fleet_phase(np, torch, dev, entry, ops, kernels, card, shared):
-    """Steps 13-17: bench config 4's full-fidelity fleet at full width.
-    Returns {kernel name: dict(launches, and check_kernels' numbers)}, and
-    leaves the world, start state, draws and tick inputs in ``shared``
+def fleet_phase(np, torch, dev, entry, ops, kernels, shared):
+    """Steps 13-16: bench config 4's full-fidelity fleet at full width.
+    Leaves the world, start state, draws and tick inputs in ``shared``
     for the sharded phase."""
-    from dddmr_navigation_tpu_torch.parallel import fleet as tfleet
     from dddmr_navigation_tpu_torch.interop import (
         DRAW_KEYS, port_draws, port_mcl_state)
     from dddmr_navigation_tpu_torch.state_estimation import pf
 
-    torch.cuda.reset_peak_memory_stats()
     g = np.load(os.path.join(ROOT, "dddmr_navigation_tpu_torch", "testdata",
                              "config4_golden.npz"))
 
     # 13. build
-    t0 = time.perf_counter()
     c4 = entry.config4_inputs(device=dev)
-    cfg, lp, p = c4.cfg, c4.cfg.local_planner, c4.cfg.perception
+    lp, p = c4.cfg.local_planner, c4.cfg.perception
     b, n = entry.CONFIG4_ROBOTS, c4.mcl.num_particles
     ticks = entry.CONFIG4_TICKS + 1
-    print(f"fleet: config 4 built in {time.perf_counter() - t0:.2f} s: "
-          f"{b} robots, G={c4.fmap.nbr_idx.shape[0]} ground nodes, "
+    print(f"fleet: config 4 built: {b} robots, "
+          f"G={c4.fmap.nbr_idx.shape[0]} ground nodes, "
           f"K={c4.fmap.nbr_idx.shape[1]}, window "
           f"{p.voxel_window_cells_xy}x{p.voxel_window_cells_xy}x"
           f"{p.voxel_window_cells_z}, {p.lidar.max_scan_points} scan points, "
@@ -1340,9 +786,9 @@ def fleet_phase(np, torch, dev, entry, ops, kernels, card, shared):
 
     shared.update(c4=c4, state0=state0, draws=gen_draws, inputs=inputs)
 
-    def run(draws=gen_draws, n_ticks=ticks, t0=0, state=state0, **kw):
+    def run(draws=gen_draws, n_ticks=ticks, **kw):
         return entry.run_fleet_full_chain(
-            c4, state, draws.__getitem__, n_ticks, t0=t0,
+            c4, state0, draws.__getitem__, n_ticks,
             inputs_of=inputs.__getitem__, **kw)
 
     # 14. the cold tick and 10 warm ticks through the kernels, then through
@@ -1409,157 +855,22 @@ def fleet_phase(np, torch, dev, entry, ops, kernels, card, shared):
     torch.cuda.synchronize()
     calls = {name: [(t, with_ring(name, a, FLEET_RING_ROBOTS))
                     for t, a in cs] for name, cs in calls.items()}
-    stats = check_kernels(kernels, calls, FLEET_CHECK_TICKS, FLEET_PER_TICK)
-    del recorder, calls, plain, pfinal, gold
-
-    # 17. timing: the cold tick, then warm chains, CUDA events per tick;
-    # the cell's peak memory is that of these kernel-path ticks
-    torch.cuda.synchronize()
-    phase_peak = torch.cuda.max_memory_allocated()
-    held = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-
-    def timed_tick(state, t, draws=gen_draws):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = entry.config4_tick(c4, state, t, draws[t], inputs=inputs[t])
-        e1.record()
-        return out, (e0, e1)
-
-    cold = []
-    for _ in range(FLEET_COLD_REPS):
-        (state1, _), ev = timed_tick(state0, 0)
-        torch.cuda.synchronize()
-        cold.append(ev[0].elapsed_time(ev[1]))
-
-    def warm_chains(n_chains):
-        per_tick, wall = [], []
-        for _ in range(n_chains):
-            s_, events = state1, []
-            torch.cuda.synchronize()
-            w0 = time.perf_counter()
-            for t in range(1, ticks):
-                (s_, _), ev = timed_tick(s_, t)
-                events.append(ev)
-            torch.cuda.synchronize()
-            wall.append((time.perf_counter() - w0) / (ticks - 1) * 1e3)
-            per_tick += [a.elapsed_time(z) for a, z in events]
-        return np.asarray(per_tick), np.asarray(wall)
-
-    warm_chains(1)                                # warm-up
-    warm, wall = warm_chains(FLEET_CHAINS)
-    tick_peak = torch.cuda.max_memory_allocated()
-    with critics_calling(ops.swept_box_hits_plain,
-                         ops.masked_min_distance_plain):
-        plain_warm, _ = warm_chains(1)
-    print(f"fleet cold tick ({b} robots, cold relaxation): "
-          f"{[round(c, 3) for c in cold]} ms, median "
-          f"{float(np.median(cold))!r} ms; warm tick (kernel path, "
-          f"n={warm.size}): median {float(np.median(warm))!r} ms, p95 "
-          f"{float(np.percentile(warm, 95))!r} ms, p99 "
-          f"{float(np.percentile(warm, 99))!r} ms, host wall per tick median "
-          f"{float(np.median(wall))!r} ms; plain path median "
-          f"{float(np.median(plain_warm))!r} ms (n={plain_warm.size}); "
-          f"card {card}")
-
-    # time between stage boundaries: the tick's own stages with an event
-    # between each (host-bound stages include the device's wait for the
-    # host)
-    stage_names = ("MCL", "perceive+prepare", "relaxation",
-                   "extraction+interpolation", "simple local",
-                   "rotate+recovery+FSM")
-    stage_events = []
-
-    def staged_tick(nav_cfg, mb_cfg, spec, ri, params, fmap, state, scans,
-                    masks, offset, goals, now, dt, **kw):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
-        ev[0].record()
-        loc = tfleet.fleet_localize(
-            state, dt, mcl_cfg=kw["mcl_cfg"], submap_ctx=kw["submap_ctx"],
-            odom_drift_pos=kw["odom_drift_pos"],
-            odom_drift_yaw=kw["odom_drift_yaw"],
-            feature_map_pts=kw["feature_map_pts"],
-            feature_ground_pts=kw["feature_ground_pts"],
-            mcl_draws=kw["mcl_draws"], feature_keys_=kw["feature_keys_"])
-        ev[1].record()
-        pre = tfleet.fleet_perceive(nav_cfg, spec, ri, params, fmap, state,
-                                    loc, scans, masks, offset, goals)
-        ev[2].record()
-        dist, iters = tfleet.fleet_relax(nav_cfg, fmap, pre)
-        ev[3].record()
-        res, stall, plans = tfleet.fleet_extract(nav_cfg, fmap, state, pre,
-                                                 dist, iters)
-        ev[4].record()
-        fused2, out = tfleet.fleet_simple_local(nav_cfg, state, loc, pre,
-                                                res, plans, masks, stall)
-        ev[5].record()
-        result = tfleet.fleet_decide(nav_cfg, mb_cfg, state, loc, fused2,
-                                     out, now, dt)
-        ev[6].record()
-        stage_events.append(ev)
-        return result
-
-    staged, _ = run(tick=staged_tick)
-    check(all(torch.equal(staged[f], chain[f]) for f in FLEET_INT),
-          "the staged fleet tick differs from fleet_full_tick")
-    stage_events.clear()
-    for _ in range(FLEET_CHAINS):
-        run(tick=staged_tick)
-    torch.cuda.synchronize()
-    per_stage = np.asarray([[ev[i].elapsed_time(ev[i + 1]) for i in range(6)]
-                            for ev in stage_events])
-    warm_stage = per_stage.reshape(FLEET_CHAINS, ticks, 6)[:, 1:]
-    print("fleet stages, median ms per warm tick over "
-          f"{warm_stage.shape[0] * warm_stage.shape[1]} ticks (CUDA events "
-          f"between stages): "
-          + "; ".join(f"{nm} {float(np.median(warm_stage[..., i])):.3f}"
-                      for i, nm in enumerate(stage_names))
-          + "; cold tick: "
-          + "; ".join(f"{nm} {float(np.median(per_stage.reshape(FLEET_CHAINS, ticks, 6)[:, 0, i])):.3f}"
-                      for i, nm in enumerate(stage_names)))
-
-    # host syncs in one warm tick
-    sites, ((_, diag1), _) = sync_sites(torch, lambda: timed_tick(state1, 1))
-    print(f"host syncs in warm tick 1: {sum(sites.values())} (relaxation "
-          f"{int(diag1['wf_iters'][0])} iterations); by call site: "
-          f"{site_text(sites)}")
-
-    s_ = [state1, 1]
-
-    def step():                   # warm ticks 1, 2, ... in turn
-        t = s_[1]
-        s_[0], _ = entry.config4_tick(c4, s_[0], t, gen_draws[t],
-                                      inputs=inputs[t])
-        s_[1] += 1
-    profile_ticks(step, FLEET_PROFILED_TICKS, kernels)
-    phase_peak = max(phase_peak, torch.cuda.max_memory_allocated())
-    print(f"fleet peak device memory over the kernel-path cold and warm "
-          f"ticks {tick_peak / 2**20:.1f} MiB ({held / 2**20:.1f} MiB held "
-          f"before them: the world, the inputs of {ticks} ticks, the "
-          f"states); over the whole phase, plain chains and kernel checks "
-          f"included, {phase_peak / 2**20:.1f} MiB; card {card}")
-    return {name: dict(launches=launches[name], **stats[name])
-            for name in kernels}
+    check_kernels(kernels, calls, FLEET_CHECK_TICKS, FLEET_PER_TICK)
 
 
-def session_phase(np, torch, dev, entry, ops, kernels, card):
+def session_phase(np, torch, dev, entry, ops, kernels):
     """Steps 18-22: the single-robot navigation session (perception, depth
     cameras, zone layers, DWA replans, the local planner, the move-base
-    FSM) at the session demo's full width. Returns {kernel name:
-    dict(launches, launches_per_tick, and check_kernels' numbers)}."""
-    torch.cuda.reset_peak_memory_stats()
+    FSM) at the session demo's full width."""
     g = np.load(os.path.join(ROOT, "dddmr_navigation_tpu_torch", "testdata",
                              "session_golden.npz"))
 
     # 18. build
-    t0 = time.perf_counter()
     sc = entry.session_scenario()
-    cfg, lp, p = sc.cfg, sc.cfg.local_planner, sc.cfg.perception
+    lp, p = sc.cfg.local_planner, sc.cfg.perception
     sess = entry.make_session(sc, dev)
     n_nodes, k_nbr = sess.driver.runtime.graph.nbr_idx.shape
-    print(f"session: built in {time.perf_counter() - t0:.2f} s: "
-          f"G={n_nodes} ground nodes, K={k_nbr}; window "
+    print(f"session: built: G={n_nodes} ground nodes, K={k_nbr}; window "
           f"{p.voxel_window_cells_xy}x{p.voxel_window_cells_xy}x"
           f"{p.voxel_window_cells_z}; range image "
           f"{p.lidar.range_image_rows}x{p.lidar.range_image_cols}; "
@@ -1583,51 +894,26 @@ def session_phase(np, torch, dev, entry, ops, kernels, card):
     check(max(dv, dw, dc) <= 1e-5, f"session replay off JAX: {dv} {dw} {dc}")
     sess.close()
 
-    # 20. closed loop on the kernel path and on the plain path; the kernel
-    # path's ticks timed by CUDA events, its stages by the tracing
-    # recorder's stage spans (host clock)
-    from dddmr_navigation_tpu_torch.runtime import tracing
-
-    def closed_loop(threaded=False, timed=False):
+    # 20. closed loop on the kernel path and on the plain path
+    def closed_loop(threaded=False):
         s_ = entry.make_session(sc, dev, threaded_plan_manager=threaded)
-        events = []
-        if timed:
-            tick = s_.tick
-
-            def timed_tick(*a, **k):
-                e0 = torch.cuda.Event(enable_timing=True)
-                e1 = torch.cuda.Event(enable_timing=True)
-                e0.record()
-                out = tick(*a, **k)
-                e1.record()
-                events.append((e0, e1))
-                return out
-            s_.tick = timed_tick
-        with (tracing.recording() if timed
-              else contextlib.nullcontext([])) as kept:
-            try:
-                ch = entry.run_session_chain(s_, sc, entry.SESSION_TICKS)
-            finally:
-                s_.close()
+        try:
+            ch = entry.run_session_chain(s_, sc, entry.SESSION_TICKS)
+        finally:
+            s_.close()
         torch.cuda.synchronize()
-        stages = tracing.stage_seconds(kept, "tick")
-        return ch, s_, events, stages
+        return ch, s_
 
-    held = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
     reset_launches(ops)
-    w0 = time.perf_counter()
-    chain, sess_k, events, stages = closed_loop(timed=True)
-    wall = time.perf_counter() - w0
+    chain, _ = closed_loop()
     launches = read_launches(ops)
-    tick_peak = torch.cuda.max_memory_allocated()
     n = len(chain.vx)
     print(f"launches in the {n}-tick session chain: {launches}")
     check(all(v > 0 for v in launches.values()),
           f"a kernel was not launched in the session chain: {launches}")
     with critics_calling(ops.swept_box_hits_plain,
                          ops.masked_min_distance_plain):
-        plain, _, _, _ = closed_loop()
+        plain, _ = closed_loop()
     check(read_launches(ops) == launches, "plain chain launched a kernel")
     for f in chain._fields:
         a, b = getattr(chain, f), getattr(plain, f)
@@ -1649,7 +935,7 @@ def session_phase(np, torch, dev, entry, ops, kernels, card):
                if t == 0 or chain.decision[t] != chain.decision[t - 1]]
     print(f"session closed loop: kernel and plain paths equal bit for bit "
           f"over {n} ticks; succeeded {bool(chain.succeeded[-1])} at tick "
-          f"{n - 1} ({n * 0.1:.1f} s simulated, {wall:.1f} s wall); final "
+          f"{n - 1} ({n * 0.1:.1f} s simulated); final "
           f"distance to goal {to_goal:.3f} m; least wall clearance "
           f"{clearance:.3f} m; ticks in the no-entry zone {entered}; min y "
           f"{float(pos[:, 1].min()):.2f} m; decision changes {changes}; "
@@ -1659,23 +945,6 @@ def session_phase(np, torch, dev, entry, ops, kernels, card):
           f"session did not succeed near the goal ({to_goal} m)")
     check(clearance > 0.2, f"session came within {clearance} m of the wall")
     check(entered == 0, "session entered the no-entry zone")
-
-    ticks_ms = np.asarray([a.elapsed_time(b) for a, b in events])
-    per_stage = {k: [1e3 * x for x in v] for k, v in stages.items()}
-    per_tick_launches = {k: v / n for k, v in launches.items()}
-    print(f"session tick (kernel path, closed loop, n={ticks_ms.size}): "
-          f"median {float(np.median(ticks_ms))!r} ms, p95 "
-          f"{float(np.percentile(ticks_ms, 95))!r} ms, p99 "
-          f"{float(np.percentile(ticks_ms, 99))!r} ms, max "
-          f"{float(ticks_ms.max())!r} ms; kernel launches per tick "
-          f"{per_tick_launches}; peak device memory over the session ticks "
-          f"{tick_peak / 2**20:.1f} MiB ({held / 2**20:.1f} MiB held before "
-          f"them); card {card}")
-    print("session stages, median (mean, p99) ms per tick where run "
-          "(host clock, the tracing recorder's stage spans): "
-          + "; ".join(f"{k} {float(np.median(v)):.3f} ({float(np.mean(v)):.3f}"
-                      f", {float(np.percentile(v, 99)):.3f}) over {len(v)}"
-                      for k, v in per_stage.items()))
 
     # 21. the kernels at the session's call shapes, from the align-heading
     # ticks at the start (both generators run), the later tick's collision
@@ -1706,46 +975,16 @@ def session_phase(np, torch, dev, entry, ops, kernels, card):
                      else a) for t, a in cs] for name, cs in calls.items()}
     per_check = {k: len(v) // len(SESSION_CHECK_TICKS)
                  for k, v in calls.items()}
-    stats = check_kernels(kernels, calls, SESSION_CHECK_TICKS, per_check)
+    check_kernels(kernels, calls, SESSION_CHECK_TICKS, per_check)
 
     # 22. threaded plan manager to SUCCESS
-    w0 = time.perf_counter()
-    tch, t_sess, _, _ = closed_loop(threaded=True)
+    tch, t_sess = closed_loop(threaded=True)
     published = t_sess.driver.plan_manager.published
     print(f"threaded session: succeeded {bool(tch.succeeded[-1])} after "
-          f"{len(tch.vx)} ticks ({time.perf_counter() - w0:.1f} s wall); the "
-          f"worker published {published} plans on its own CUDA stream")
+          f"{len(tch.vx)} ticks; the worker published {published} plans on "
+          f"its own CUDA stream")
     check(bool(tch.succeeded[-1]), "threaded session did not succeed")
     check(published > 0, "the plan worker published no plan")
-
-    # host syncs by call site, and a profile, over replayed ticks 30-39
-    r_sess = entry.make_session(sc, dev)
-    r_sess.set_goal(sc.goal)
-    inputs_rec = [entry.session_golden_inputs(g, t, sc)
-                  for t in range(min(int(g["replay_ticks"]), 60))]
-
-    def replay_tick(t):
-        x = inputs_rec[t]
-        for c, (cp, cq, dp) in enumerate(x["frames"]):
-            r_sess.push_depth_observation(c, cp, cq, dp, x["now"])
-        return r_sess.tick(x["pts"], x["mask"], x["pos"], x["quat"], x["v"],
-                           x["w"], x["now"])
-    for t in range(30):
-        replay_tick(t)
-    sites, _ = sync_sites(torch, lambda: replay_tick(30))
-    print(f"host syncs in replayed tick 30 (decision "
-          f"{int(g['decision'][30])}): {sum(sites.values())}; by call site: "
-          f"{site_text(sites)}")
-    s2 = [31]
-
-    def step():
-        replay_tick(s2[0])
-        s2[0] += 1
-    profile_ticks(step, SESSION_PROFILED_TICKS, kernels)
-    r_sess.close()
-    return {name: dict(launches=launches[name],
-                       launches_per_tick=launches[name] / n, **stats[name])
-            for name in kernels}
 
 
 def tree_diffs(torch, a, b, path="state"):
@@ -1768,14 +1007,12 @@ def tree_diffs(torch, a, b, path="state"):
     return [] if a == b else [path]
 
 
-def sharded_phase(np, torch, dev, entry, ops, kernels, card, shared):
+def sharded_phase(torch, entry, ops, kernels, shared):
     """Steps 23-25: the sharded fleet ticks over NCCL at world size 1 on
-    the card, config 4 at full width. Returns {kernel name:
-    dict(launches, and check_kernels' numbers)}."""
+    the card, config 4 at full width."""
     import datetime
     import socket
     import torch.distributed as dist
-    from torch.profiler import ProfilerActivity
     from dddmr_navigation_tpu_torch.parallel import fleet as tfleet
     from dddmr_navigation_tpu_torch.parallel import multihost
 
@@ -1798,24 +1035,22 @@ def sharded_phase(np, torch, dev, entry, ops, kernels, card, shared):
         print(f"sharded: NCCL process group at world size 1 on "
               f"{torch.cuda.get_device_name(0)} (port {port}); mesh "
               f"{mesh}", flush=True)
-        stats = _sharded_checks(np, torch, entry, ops, kernels, card, c4,
-                                state0, draws, inputs, b, mesh, tfleet,
-                                multihost, ProfilerActivity)
+        _sharded_checks(torch, entry, ops, kernels, c4, state0, draws,
+                        inputs, b, mesh, tfleet, multihost)
     finally:
         dist.destroy_process_group()
-    return stats
 
 
-def _sharded_checks(np, torch, entry, ops, kernels, card, c4, state0, draws,
-                    inputs, b, mesh, tfleet, multihost, ProfilerActivity):
-    def sharded(n_ticks, state=state0, t0=0):
+def _sharded_checks(torch, entry, ops, kernels, c4, state0, draws, inputs, b,
+                    mesh, tfleet, multihost):
+    def sharded(n_ticks):
         return entry.run_sharded_fleet_full_chain(
-            c4, state, draws.__getitem__, n_ticks, mesh, t0=t0,
+            c4, state0, draws.__getitem__, n_ticks, mesh,
             inputs_of=inputs.__getitem__)
 
-    def unsharded(n_ticks, state=state0, t0=0):
-        diags = []
-        for t in range(t0, t0 + n_ticks):
+    def unsharded(n_ticks):
+        state, diags = state0, []
+        for t in range(n_ticks):
             state, diag = entry.config4_tick(c4, state, t, draws[t],
                                              inputs=inputs[t])
             diags.append(diag)
@@ -1880,8 +1115,7 @@ def _sharded_checks(np, torch, entry, ops, kernels, card, c4, state0, draws,
               f"to fleet_tick; reduced mean cost {float(mean)!r} over "
               f"{int(ok.sum())} robots")
 
-    # 25. kernels against plain at the sharded tick's call shapes; timing
-    # in turns; a profile of one sharded tick
+    # 25. kernels against plain at the sharded tick's call shapes
     recorder, calls = recorder_pair(SHARDED_CHECK_TICKS, FLEET_PER_TICK)
     with critics_calling(recorder("swept_box_hits", ops.swept_box_hits),
                          recorder("masked_min_distance",
@@ -1890,70 +1124,7 @@ def _sharded_checks(np, torch, entry, ops, kernels, card, c4, state0, draws,
     torch.cuda.synchronize()
     calls = {name: [(t, with_ring(name, a, FLEET_RING_ROBOTS))
                     for t, a in cs] for name, cs in calls.items()}
-    stats = check_kernels(kernels, calls, SHARDED_CHECK_TICKS,
-                          FLEET_PER_TICK)
-    del recorder, calls
-
-    s1 = sharded(1)[1]
-    u1 = unsharded(1)[1]
-
-    def timed(fn, state):
-        """CUDA-event ms of warm ticks 1 and 2 from the state after tick
-        0 (``fn`` is ``sharded`` or ``unsharded``)."""
-        out = []
-        for t in (1, 2):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            state = fn(1, state, t)[1]
-            e1.record()
-            out.append((e0, e1))
-        torch.cuda.synchronize()
-        return [a.elapsed_time(z) for a, z in out]
-    ms = {"sharded": [], "unsharded": []}
-    for rep in range(2):                         # warm-up, then the turns
-        for turn in SHARDED_TURNS:
-            got = timed(sharded if turn == "sharded" else unsharded,
-                        s1 if turn == "sharded" else u1)
-            if rep:
-                ms[turn] += got
-    ms = {k: np.asarray(v) for k, v in ms.items()}
-    print(f"sharded vs unsharded warm ticks, turns "
-          f"{'/'.join(SHARDED_TURNS)} (CUDA events, n={ms['sharded'].size} "
-          f"each): sharded median {float(np.median(ms['sharded']))!r} ms, "
-          f"unsharded median {float(np.median(ms['unsharded']))!r} ms; "
-          f"card {card}")
-
-    def one():
-        sharded(1, s1, 1)
-    for _ in range(PROFILE_TRIES):
-        avg = profiled(one, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
-        dev_ev = [ev for ev in avg
-                  if ev.device_type == torch.autograd.DeviceType.CUDA
-                  and not is_lead(ev)]
-        counts = {name: sum(ev.count for ev in dev_ev
-                            if f"{name}_kernel" in ev.key)
-                  for name in kernels}
-        if counts == FLEET_PER_TICK:
-            break
-        print(f"profile of a sharded tick recorded {counts}; profiling "
-              f"again")
-    else:
-        fail(f"the profiler recorded {counts} kernel launches of a sharded "
-             f"tick, expected {FLEET_PER_TICK}")
-    busy = sum(ev.self_device_time_total for ev in dev_ev)
-    nccl_ev = [ev for ev in dev_ev if "nccl" in ev.key.lower()]
-    nccl = sum(ev.self_device_time_total for ev in nccl_ev)
-    kern = {name: sum(ev.self_device_time_total for ev in dev_ev
-                      if f"{name}_kernel" in ev.key) for name in kernels}
-    print(f"profile of one sharded warm tick: {counts} kernel launches (as "
-          f"the tick calls them), device busy {busy:.1f} us over "
-          f"{sum(ev.count for ev in dev_ev)} device kernels, NCCL "
-          f"{nccl:.1f} us over {sum(ev.count for ev in nccl_ev)} kernels "
-          f"{sorted(set(ev.key[:40] for ev in nccl_ev))}, "
-          + ", ".join(f"{k} {v:.1f} us" for k, v in kern.items()))
-    return {name: dict(launches=launches[name], **stats[name])
-            for name in kernels}
+    check_kernels(kernels, calls, SHARDED_CHECK_TICKS, FLEET_PER_TICK)
 
 
 def _pose_graph(np, submaps, map_pts, ground_pts):
@@ -1976,11 +1147,10 @@ def _pose_graph(np, submaps, map_pts, ground_pts):
     return submaps.PoseGraph(poses, split(map_pts), split(ground_pts))
 
 
-def localization_phase(np, torch, dev, entry, card):
+def localization_phase(np, torch, dev, entry):
     """Steps 26-29: the localization vertical at the global-localization
     scenario's full size (2,048 particles)."""
     import tempfile
-    from torch.profiler import ProfilerActivity
     from dddmr_navigation_tpu_torch.interop import (
         mcl_fields, port_seed_draws, port_tick_of_one, tick_of)
     from dddmr_navigation_tpu_torch.state_estimation import (
@@ -1988,7 +1158,6 @@ def localization_phase(np, torch, dev, entry, card):
     from dddmr_navigation_tpu_torch.state_estimation.likelihood import (
         build_submap_context)
 
-    torch.cuda.reset_peak_memory_stats()
     g = np.load(os.path.join(ROOT, "dddmr_navigation_tpu_torch", "testdata",
                              "globalloc_golden.npz"))
     sc = entry.global_localization_scenario()
@@ -2013,9 +1182,7 @@ def localization_phase(np, torch, dev, entry, card):
                                 search_radius=LOC_SUBMAP_RADIUS,
                                 warmup_trigger_distance=20.0, res=sc.res,
                                 device=dev)
-    t0 = time.perf_counter()
     ctx0 = mgr.initialize(center)
-    t_init = time.perf_counter() - t0
     direct = build_submap_context(
         *submaps.stitch_submap(back, center, LOC_SUBMAP_RADIUS), sc.cfg,
         res=sc.res, device=dev)
@@ -2038,8 +1205,8 @@ def localization_phase(np, torch, dev, entry, card):
     check(ctx_diffs(ctx1, ctx0), "the swap kept the old submap")
     print(f"localization: pose graph of {len(back.poses)} keyframes "
           f"written and read back equal; submap at {center.tolist()} "
-          f"(radius {LOC_SUBMAP_RADIUS} m) built on the card in "
-          f"{t_init:.2f} s, equal to build_submap_context; a drift to "
+          f"(radius {LOC_SUBMAP_RADIUS} m) built on the card, equal to "
+          f"build_submap_context; a drift to "
           f"{far.tolist()} prefetched on the warm-up thread and swapped in "
           f"complete (fields {tuple(ctx0.map_field.dist.shape)} -> "
           f"{tuple(ctx1.map_field.dist.shape)})", flush=True)
@@ -2142,8 +1309,7 @@ def localization_phase(np, torch, dev, entry, card):
               f"replay ends {err:.3f} m off")
     del chain
 
-    # 28. closed loops on the card, each from its own torch.Generator:
-    # every tick timed by CUDA events, grouped by particle count
+    # 28. closed loops on the card, each from its own torch.Generator
     from dddmr_navigation_tpu_torch.state_estimation.global_localization \
         import draw_seed
     n_ground = len(sc.ground_pts)
@@ -2156,7 +1322,7 @@ def localization_phase(np, torch, dev, entry, card):
               f"{LOC_COVER_DRAWS * n_ground} seed draws do not cover "
               f"[0, {m}) exactly")
     ground = torch.as_tensor(sc.ground_pts, device=dev)
-    by_n, finals = {}, []
+    finals = []
     for seed in LOC_SEEDS:
         gen = torch.Generator(device=dev).manual_seed(seed)
         gl = entry.make_global_localization(sc, gen, ctx=ctx, device=dev)
@@ -2165,23 +1331,8 @@ def localization_phase(np, torch, dev, entry, card):
         check(torch.equal(gl.state.particles.pos[0],
                           ground[want.node_idx]), f"seed {seed}: the loop "
               f"did not start from its generator's draws")
-        ev = []
-        orig_step = gl.step
-
-        def timed_step(*a, _s=orig_step, **k):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            n = gl.size
-            e0.record()
-            out = _s(*a, **k)
-            e1.record()
-            ev.append((n, e0, e1))
-            return out
-        gl.step = timed_step
         chain = entry.run_global_localization(sc, gl)
         torch.cuda.synchronize()
-        for n, e0, e1 in ev:
-            by_n.setdefault(n, []).append(e0.elapsed_time(e1))
         pos, _ = entry.globalloc_pose(len(chain.n))
         err = float(np.linalg.norm(chain.pose_pos[-1][0, :2].cpu().numpy()
                                    - pos[:2]))
@@ -2195,24 +1346,15 @@ def localization_phase(np, torch, dev, entry, card):
           f"{len(finals)}")
     check(within >= LOC_MIN_WITHIN, f"only {within} of {len(finals)} "
           f"closed loops within 1.0 m")
-    print(f"global-localization tick on the card, median ms by particle "
-          f"count (CUDA events, {len(LOC_SEEDS)} loops): "
-          + ", ".join(f"{n}: {float(np.median(v))!r} (n={len(v)})"
-                      for n, v in sorted(by_n.items(), reverse=True))
-          + f"; card {card}")
 
-    # 29. preprocessing and odometry on the card against the CPU; host
-    # syncs, device time and peak memory of the tick
+    # 29. preprocessing and odometry on the card against the CPU
     r0 = recs[0]
     cpu_out = feature_weights.preprocess_features(
         sc.cfg, *(torch.as_tensor(r0[k]) for k in ("flat", "flat_m", "sharp",
                                                     "sharp_m")))
-    sites, dev_out = sync_sites(torch, lambda: feature_weights
-                                .preprocess_features(
-                                    sc.cfg, *(rec_inputs[0][k] for k in (
-                                        "flat", "flat_m", "sharp",
-                                        "sharp_m"))))
-    dev_out = [x.cpu() for x in dev_out]
+    dev_out = [x.cpu() for x in feature_weights.preprocess_features(
+        sc.cfg, *(rec_inputs[0][k] for k in ("flat", "flat_m", "sharp",
+                                              "sharp_m")))]
     for i in (0, 1, 2, 3):
         check(torch.equal(dev_out[i], cpu_out[i]), f"preprocess_features "
               f"output {i} differs card vs CPU")
@@ -2226,8 +1368,7 @@ def localization_phase(np, torch, dev, entry, card):
                .abs().max())
     print(f"preprocess_features ({len(r0['flat'])} flat, {len(r0['sharp'])} "
           f"sharp): keep masks equal card vs CPU, weights within {dw!r}, "
-          f"normals within {dn!r}; host syncs "
-          f"{sum(sites.values())} ({site_text(sites)})")
+          f"normals within {dn!r}")
     check(dn <= 1e-5, f"normals card vs CPU off by {dn}")
     rng = np.random.default_rng(11)
     n = LOC_ODOM_STEPS
@@ -2238,54 +1379,22 @@ def localization_phase(np, torch, dev, entry, card):
     log = (torch.as_tensor(rng.uniform(-1, 2, n).astype(np.float32)), q,
            torch.as_tensor(rng.uniform(0.05, 0.15, n).astype(np.float32)))
     cpu_st, cpu_path = odom3d.integrate_log(odom3d.init_odom3d("cpu"), *log)
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
     dev_st, dev_path = odom3d.integrate_log(
         odom3d.init_odom3d(dev), *(x.to(dev) for x in log))
-    e1.record()
-    torch.cuda.synchronize()
     dpath = float((dev_path.cpu() - cpu_path).abs().max())
     print(f"integrate_log of a {n}-step log: path card vs CPU within "
-          f"{dpath!r} m (final {dev_st.pos.tolist()}); "
-          f"{e0.elapsed_time(e1)!r} ms on the card")
+          f"{dpath!r} m (final {dev_st.pos.tolist()})")
     check(dpath <= 1e-5, f"odom3d path card vs CPU off by {dpath}")
 
-    def one_tick(k):
-        """Golden tick k + 1 from JAX's state the tick started from."""
-        gl = entry.make_global_localization(
-            sc, seed_draws=port_seed_draws(g, dev), ctx=ctx, device=dev)
-        gl.state = rec_ticks[k][0]
-        x = rec_inputs[k]
-        dt = torch.tensor(np.float32(entry.GLOBALLOC_DT), device=dev)
-        weight = torch.ones(x["sharp"].shape[0], device=dev)
 
-        def run():
-            return gl.step(x["odom_prev_pos"], x["odom_prev_quat"],
-                           x["odom_pos"], x["odom_quat"], dt, x["flat"],
-                           x["flat_m"], x["sharp"], x["sharp_m"], weight,
-                           draws=rec_ticks[k][1])
-        return run
-    for k in (0, n_ticks - 1):
-        sites, _ = sync_sites(torch, one_tick(k))
-        print(f"host syncs in a global-localization tick at "
-              f"{int(g['n'][k])} particles: {sum(sites.values())} "
-              f"({site_text(sites)})")
-        run = one_tick(k)
-        profile_ticks(run, 1, ())
-    print(f"localization peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; card {card}")
-
-
-def slam_phase(np, torch, dev, entry, card):
-    """Steps 30-34: the SLAM vertical at ``SlamConfig()``'s full width."""
+def slam_phase(np, torch, dev, entry):
+    """Steps 30-32: the SLAM vertical at ``SlamConfig()``'s full width."""
     import tempfile
     from dddmr_navigation_tpu_torch.interop import tick_of
     from dddmr_navigation_tpu_torch.slam.editor import GraphEditor
     from dddmr_navigation_tpu_torch.state_estimation.submaps import (
         read_pose_graph)
 
-    t_phase = time.perf_counter()
     g = dict(np.load(os.path.join(ROOT, "dddmr_navigation_tpu_torch",
                                   "testdata", "slam_golden.npz")))
     sc = entry.slam_scenario()
@@ -2309,7 +1418,6 @@ def slam_phase(np, torch, dev, entry, card):
             e /= max(1.0, float(np.abs(want).max()))
         worst[name] = max(worst.get(name, (0.0, -1)), (e, t))
     bad, n_front = [], 0
-    w0 = time.perf_counter()
     for t in range(sc.scans):
         sess = replay(t)
         last, out = sess.last_scan, tick_of(g, t, prefix="out_")
@@ -2347,7 +1455,7 @@ def slam_phase(np, torch, dev, entry, card):
         err("scan quat", sess.cur_quat, out["quat"])
     torch.cuda.synchronize()
     print(f"SLAM golden replay on the card, teacher-forced at all "
-          f"{sc.scans} scans ({time.perf_counter() - w0:.1f} s): frontend "
+          f"{sc.scans} scans: frontend "
           f"bit-equal at {n_front} keyframe scans; worst error (value, scan)"
           f" by output: {worst}; integer mismatches {bad[:5]}", flush=True)
     check(not bad, f"SLAM replay off JAX's integers or features: {bad[:5]}")
@@ -2356,24 +1464,9 @@ def slam_phase(np, torch, dev, entry, card):
     check(all(e <= SLAM_TOL for e, _ in worst.values()),
           f"SLAM replay off JAX beyond {SLAM_TOL}: {worst}")
 
-    # 31 (+ 33's timing). the scenario closed loop, unforced
-    def ev():
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        return e
-
-    def ev_s(a, b):
-        b.synchronize()
-        return a.elapsed_time(b) / 1e3
+    # 31. the scenario closed loop, unforced
     sess = entry.make_mapping_session(sc, dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()
-    w0 = time.perf_counter()
-    chain = entry.run_mapping_chain(sess, sc, scans_of=lambda t: scans[t],
-                                    clock=ev, elapsed=ev_s)
-    wall = time.perf_counter() - w0
-    peak = torch.cuda.max_memory_allocated()
+    chain = entry.run_mapping_chain(sess, sc, scans_of=lambda t: scans[t])
     truth, _ = entry.slam_truth(sc, sc.scans - 1)
     final = float(np.linalg.norm(chain.pos[-1][:2] - truth[:2]))
     dep = float(np.abs(chain.pos - g["out_pos"]).max())
@@ -2387,8 +1480,8 @@ def slam_phase(np, torch, dev, entry, card):
                           int(g["out_n_keyframes"][-1]) - 1))
     pairs = [(i, j) for i, j, _ in chain.loop_closures]
     jax_kf = int(g["out_n_keyframes"][-1])
-    print(f"SLAM closed loop on the card, unforced ({sc.scans} scans, "
-          f"{wall:.1f} s wall): {chain.keyframes[-1]} keyframes (JAX "
+    print(f"SLAM closed loop on the card, unforced ({sc.scans} scans): "
+          f"{chain.keyframes[-1]} keyframes (JAX "
           f"{jax_kf}), {chain.edges[-1]} edges (JAX "
           f"{int(g['out_n_edges'][-1])}), loops {pairs} (JAX {jax_pairs}); "
           f"largest departure from JAX's poses {dep!r} m; final error "
@@ -2413,7 +1506,6 @@ def slam_phase(np, torch, dev, entry, card):
                 back.feature_clouds + back.ground_clouds,
                 graph.feature_clouds + graph.ground_clouds)),
             "the saved map did not read back equal")
-        w0 = time.perf_counter()
         runs = np.asarray([[e for _, e, _ in run] for run in
                            entry.run_slam_localization(
                                sc, back, [torch.Generator(device=dev)
@@ -2422,8 +1514,8 @@ def slam_phase(np, torch, dev, entry, card):
                                device=dev)])
         med = float(np.median(runs[:, -1]))
         print(f"localization on the saved map ({len(back.poses)} keyframes;"
-              f" {len(SLAM_LOC_SEEDS)} passes of {runs.shape[1]} ticks, "
-              f"{time.perf_counter() - w0:.1f} s): final errors "
+              f" {len(SLAM_LOC_SEEDS)} passes of {runs.shape[1]} ticks): "
+              f"final errors "
               f"{np.round(runs[:, -1], 3).tolist()} m, median {med:.3f} m "
               f"(bound {SLAM_LOC_FINAL}), largest {float(runs.max()):.3f} "
               f"m; {100 * float((runs < 0.5).mean()):.1f}% of estimates "
@@ -2457,52 +1549,16 @@ def slam_phase(np, torch, dev, entry, card):
             again.poses, ed.graph.poses), "the edited map did not read back "
             "equal")
 
-    # 33. timing, host syncs, profiles, memory
-    scan_ms = np.asarray(chain.scan_s) * 1e3
-    over = int((scan_ms > 100.0).sum())
-    print(f"SLAM scan (closed loop, CUDA events, n={scan_ms.size}): median "
-          f"{float(np.median(scan_ms))!r} ms, p95 "
-          f"{float(np.percentile(scan_ms, 95))!r} ms, p99 "
-          f"{float(np.percentile(scan_ms, 99))!r} ms, max "
-          f"{float(scan_ms.max())!r} ms; {over} scans over the 10 Hz sweep's "
-          f"100 ms; peak device memory {peak / 2**20:.1f} MiB "
-          f"({held / 2**20:.1f} MiB held before); card {card}")
-    print("SLAM stages (host clock, the tracing recorder's stage spans), "
-          "median (mean, p99, max) ms where run: " + "; ".join(
-        f"{k} {1e3 * float(np.median(v)):.3f} ({1e3 * float(np.mean(v)):.3f}"
-        f", {1e3 * float(np.percentile(v, 99)):.3f}, "
-        f"{1e3 * float(np.max(v)):.3f}) over {len(v)}"
-        for k, v in chain.stage_s.items()))
-    out = g["out_keyframe"]
-    kinds = {"plain": next(t for t in range(1, sc.scans) if not out[t]),
-             "keyframe": next(t for t in range(1, sc.scans)
-                              if out[t] and not g["out_has_graph"][t]),
-             "loop closure": next(t for t in range(sc.scans)
-                                  if g["out_has_graph"][t])}
-    for kind, t in kinds.items():
-        def run(t=t):
-            replay(t)
-        sites, _ = sync_sites(torch, run)
-        print(f"host syncs in a replayed {kind} scan (scan {t}): "
-              f"{sum(sites.values())} ({site_text(sites)})")
-        if kind != "keyframe":
-            print(f"profile of a replayed {kind} scan (scan {t}, the state "
-                  f"load included):")
-            profile_ticks(run, 1, ())
-    phase_s = time.perf_counter() - t_phase
-    print(f"SLAM phase: {phase_s:.1f} s wall; card {card}", flush=True)
 
-
-def semantic_phase(np, torch, dev, entry, card):
-    """Steps 35-41: semantic segmentation at full width, and the runtime's
-    checkpoints and traces on the card."""
+def semantic_phase(np, torch, dev, entry):
+    """Steps 35-37 and 40: semantic segmentation at full width, and the
+    runtime's checkpoints and traces on the card."""
     import tempfile
     from dddmr_navigation_tpu_torch.interop import semantic_params_from
     from dddmr_navigation_tpu_torch.perception import semantic as sem
     from dddmr_navigation_tpu_torch.perception.semantic_data import miou
     from dddmr_navigation_tpu_torch.runtime import trace
 
-    t_phase = time.perf_counter()
     g = dict(np.load(os.path.join(ROOT, "dddmr_navigation_tpu_torch",
                                   "testdata", "semantic_golden.npz")))
     # 35. the 19-class artifact against the JAX golden
@@ -2534,8 +1590,7 @@ def semantic_phase(np, torch, dev, entry, card):
           f"({100 * float(flips.mean()):.4f}%, bound "
           f"{100 * SEM_FLIP_SHARE}%), {int((flips & decided).sum())} where "
           f"JAX's top-two gap exceeds {2 * SEM_LOGITS_TOL}; mIoU {score!r} "
-          f"(JAX {float(g['miou'])!r}, floor {floor:.4f}); card {card}",
-          flush=True)
+          f"(JAX {float(g['miou'])!r}, floor {floor:.4f})", flush=True)
     check(err <= SEM_LOGITS_TOL, f"logits off JAX's by {err}")
     check(not (flips & decided).any(), "a class flipped where JAX's top-two "
           f"gap exceeds {2 * SEM_LOGITS_TOL}")
@@ -2571,13 +1626,12 @@ def semantic_phase(np, torch, dev, entry, card):
     check(torch.equal(up, up_cpu), "the f32 resize differs from the CPU's")
 
     # 36. the 4-class reroute chain
-    w0 = time.perf_counter()
     r = entry.run_semantic_reroute(dev)
     mask_flips = int((r["pred"] != g["reroute_mask"].astype(np.int32)).sum())
     bend_free = entry.reroute_bend(r["ground"], r["ids_free"])
     bend_zone = entry.reroute_bend(r["ground"], r["ids_zone"])
-    print(f"reroute chain on the card ({time.perf_counter() - w0:.2f} s): "
-          f"{mask_flips} mask pixels off JAX's of {r['pred'].size}; "
+    print(f"reroute chain on the card: {mask_flips} mask pixels off JAX's "
+          f"of {r['pred'].size}; "
           f"{int(r['in_zone'].sum())} zone points (JAX "
           f"{int(g['reroute_zone_points'])}), "
           f"{100 * float(r['in_zone'].mean()):.1f}% in the true zone; plans "
@@ -2606,13 +1660,12 @@ def semantic_phase(np, torch, dev, entry, card):
     rgb_t, lab_t = torch.as_tensor(rgb, device=dev), torch.as_tensor(
         labels, device=dev)
     losses = []
-    w0 = time.perf_counter()
     for _ in range(12):
         params, state, loss = step(params, state, rgb_t, lab_t)
         losses.append(float(loss))
     drift = float(np.max(np.abs(np.asarray(losses) / g["train_losses"] - 1)))
-    print(f"12 train steps on the card ({time.perf_counter() - w0:.2f} s): "
-          f"loss {losses[0]:.5f} -> {losses[-1]:.5f} (JAX "
+    print(f"12 train steps on the card: loss {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f} (JAX "
           f"{float(g['train_losses'][0]):.5f} -> "
           f"{float(g['train_losses'][-1]):.5f}), relative departure from "
           f"JAX's {abs(losses[0] / float(g['train_losses'][0]) - 1)!r} at "
@@ -2620,40 +1673,12 @@ def semantic_phase(np, torch, dev, entry, card):
     check(losses[-1] <= 0.9 * losses[0], f"losses {losses}")
     check(drift <= 0.02, f"train losses off JAX's by {drift}")
 
-    # 38-39. frames/s at batch 1 and 8, device busy, launches, memory
-    reps = SEM_FRAMES_TIMED
-    for batch in (1, 8):
-        x = rgb8[:batch]
-
-        def infer(x=x):
-            return sem.infer_classes(sc.model, None, x)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        held = torch.cuda.memory_allocated()
-        ms = cuda_ms(infer, reps)
-        peak = torch.cuda.max_memory_allocated()
-        print(f"semantic inference at batch {batch} (CUDA events, {reps} "
-              f"calls after 2 warm-up): {ms!r} ms a call, "
-              f"{ms / batch!r} ms a frame, {1e3 * batch / ms:.1f} frames/s "
-              f"(the reference's TensorRT engine: 15 fps on an Orin Nano, "
-              f"19 on an Orin AGX); peak device memory "
-              f"{peak / 2**20:.1f} MiB ({held / 2**20:.1f} MiB held before);"
-              f" card {card}", flush=True)
-        print(f"profile of {SEM_PROFILED_CALLS} calls at batch {batch} "
-              f"(ticks = calls):")
-        profile_ticks(infer, SEM_PROFILED_CALLS, ())
-        sites, _ = sync_sites(torch, infer)
-        print(f"host syncs in one call at batch {batch}: "
-              f"{sum(sites.values())} ({site_text(sites)})")
-
     # 40. the runtime: a session checkpoint round trip and a trace
     with tempfile.TemporaryDirectory() as d:
-        w0 = time.perf_counter()
         ck = entry.session_checkpoint_round_trip(
             entry.session_scenario(), os.path.join(d, "ck"),
             ticks=SEM_CKPT_TICKS, device=dev)
-        print(f"session checkpoint round trip on the card "
-              f"({time.perf_counter() - w0:.1f} s): restored step "
+        print(f"session checkpoint round trip on the card: restored step "
               f"{ck['step']}, state equal {ck['same_state']}, next tick "
               f"{ck['out_a']} (original) and {ck['out_b']} (restored)",
               flush=True)
@@ -2670,8 +1695,6 @@ def semantic_phase(np, torch, dev, entry, card):
               f"{kernels} device kernels recorded", flush=True)
         check(len(files) == 1, "the trace wrote no file")
         check(kernels > 0, "the trace recorded no device kernel")
-    print(f"semantic phase: {time.perf_counter() - t_phase:.1f} s wall; card "
-          f"{card}", flush=True)
 
 
 def mark_clear_graph_phase(torch, dev, entry):

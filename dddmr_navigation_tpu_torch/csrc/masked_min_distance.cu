@@ -13,10 +13,11 @@
 // tick: 95 M and 42 M pairs of 8 flops, 11.6 and 5.1 us at 67 TFLOP/s f32;
 // the inputs are a few MB, a few us at 3.35 TB/s) and the toward-plan
 // critic with one query per sample, which is small. Only unmasked queries
-// and valid points need work, so a run's own bound is lower; chip_smoke.py
-// computes it from the run's data. Without FMA (the result must equal the
-// plain version's bit for bit) a pair issues 3 FSUB, 3 FMUL, 2 FADD and a
-// FMNMX; the first kernel below (v1) adds three shared loads a pair.
+// and valid points need work, so a run's own bound is lower;
+// navbench/bounds.py computes it from the run's data. Without FMA (the
+// result must equal the plain version's bit for bit) a pair issues 3 FSUB,
+// 3 FMUL, 2 FADD and a FMNMX; a kernel with one thread per query that stages
+// the points in shared memory adds three shared loads a pair.
 //
 // What the design does about it:
 //  * register tiling: a thread owns 4 queries (the wide variant, taken when
@@ -64,57 +65,8 @@ __device__ __forceinline__ float dist2(float qx, float qy, float qz, float px,
 }
 
 // ---------------------------------------------------------------------------
-// v1, the first kernel, kept for comparison: one thread per query runs every
-// pair against points staged in shared memory.
-// ---------------------------------------------------------------------------
-
-constexpr int kV1Threads = 128;   // queries per block
-constexpr int kV1Chunk = 512;     // points staged in shared memory at once
-
-__global__ void __launch_bounds__(kV1Threads)
-masked_min_distance_v1_kernel(const float* __restrict__ queries,   // (B,Q,3)
-                              const uint8_t* __restrict__ q_mask,  // (B,Q)
-                              const float* __restrict__ points,    // (B,M,3)
-                              const uint8_t* __restrict__ p_mask,  // (B,M)
-                              int Q, int M, float* __restrict__ out) {  // (B,Q)
-  __shared__ float px[kV1Chunk];
-  __shared__ float py[kV1Chunk];
-  __shared__ float pz[kV1Chunk];
-
-  const int b = blockIdx.y;
-  const int q = blockIdx.x * kV1Threads + threadIdx.x;
-  const size_t gq = static_cast<size_t>(b) * Q + q;
-  const bool active = q < Q;
-
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (active) {
-    qx = queries[gq * 3 + 0];
-    qy = queries[gq * 3 + 1];
-    qz = queries[gq * 3 + 2];
-  }
-
-  const float* pts = points + static_cast<size_t>(b) * M * 3;
-  const uint8_t* pvalid = p_mask + static_cast<size_t>(b) * M;
-  float best = kBig;
-  for (int base = 0; base < M; base += kV1Chunk) {
-    const int n = min(kV1Chunk, M - base);
-    __syncthreads();  // the previous chunk is no longer read
-    for (int i = threadIdx.x; i < n; i += kV1Threads) {
-      const bool ok = pvalid[base + i] != 0;
-      px[i] = ok ? pts[(base + i) * 3 + 0] : kFar;
-      py[i] = ok ? pts[(base + i) * 3 + 1] : kFar;
-      pz[i] = ok ? pts[(base + i) * 3 + 2] : kFar;
-    }
-    __syncthreads();
-    for (int i = 0; i < n; ++i) {
-      best = fminf(best, dist2(qx, qy, qz, px[i], py[i], pz[i]));
-    }
-  }
-  if (active) out[gq] = q_mask[gq] != 0 ? sqrtf(best) : kFar;
-}
-
-// ---------------------------------------------------------------------------
-// v2: register tiling, masked-warp skip and the compacted point set.
+// The kernel: register tiling, masked-warp skip and the compacted point
+// set.
 // ---------------------------------------------------------------------------
 
 constexpr int kWarps = 4;               // warps per block
@@ -249,22 +201,5 @@ extern "C" int masked_min_distance_launch(const void* queries,
     masked_min_distance_kernel<1><<<grid, kThreads, 0, s>>>(qs, qm, ps, pm, Q,
                                                             M, o);
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The first kernel (v1), for comparison only; same contract.
-extern "C" int masked_min_distance_v1_launch(const void* queries,
-                                             const void* q_mask,
-                                             const void* points,
-                                             const void* p_mask, int B, int Q,
-                                             int M, void* out, void* stream) {
-  if (B == 0 || Q == 0) return 0;
-  const dim3 grid((Q + kV1Threads - 1) / kV1Threads, B);
-  masked_min_distance_v1_kernel<<<grid, kV1Threads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(queries),
-      static_cast<const uint8_t*>(q_mask),
-      static_cast<const float*>(points),
-      static_cast<const uint8_t*>(p_mask), Q, M, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

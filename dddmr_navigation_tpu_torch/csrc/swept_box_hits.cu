@@ -11,11 +11,11 @@
 // step is valid (2 GFLOP, 29.7 us at the card's 67 TFLOP/s f32) on 36 MB of
 // inputs (10.8 us at 3.35 TB/s); the fused config-3 tick (1 robot, 8,192
 // samples) is 41.9 M tests (13.1 us). Only the valid steps need testing, so
-// a run's own bound is lower; chip_smoke.py computes it from the run's data.
-// The exact test cannot use FMA (the result must equal the plain version's
-// bit for bit): in the SASS (cuobjdump -sass on the card) the first kernel
-// below (v1), which runs every test, spends 32 instructions a test (three
-// shared loads, 9 FMUL, 9 FADD, the compares and the loop), so it is
+// a run's own bound is lower; navbench/bounds.py computes it from the run's
+// data. The exact test cannot use FMA (the result must equal the plain
+// version's bit for bit): in the SASS (cuobjdump -sass on the card) a kernel
+// with one thread per row that runs every test spends 32 instructions a test
+// (three shared loads, 9 FMUL, 9 FADD, the compares and the loop), so it is
 // issue-bound at about three times the f32 bound whatever its schedule.
 //
 // What the design does about it: fewer exact tests. A warp owns a tile of
@@ -30,8 +30,8 @@
 // exact test, unchanged, for all 32 rows: 46 instructions a survivor, 24
 // of them the test (one broadcast LDS.128, 9 FMUL, 9 FADD, 3 FSETP), the
 // rest the loop over the ballot's bits. On the ticks' data 3-20 % of
-// (row, obstacle) pairs survive (the plain mirror of the cull,
-// ops/collision.py, as chip_smoke.py prints it). Once a row hits it stops;
+// (row, obstacle) pairs survive (ops/collision.py::swept_box_cull_plain
+// mirrors the cull). Once a row hits it stops;
 // once a sample hits, the flag of that sample in shared memory stops the
 // sample's other rows in the block.
 //
@@ -91,69 +91,8 @@ __device__ __forceinline__ bool inside(const float (&a)[9], float c0, float c1,
 }
 
 // ---------------------------------------------------------------------------
-// v1, the first kernel, kept for comparison: one thread per (sample, step)
-// row runs every exact test against obstacles staged in shared memory.
-// ---------------------------------------------------------------------------
-
-constexpr int kV1Threads = 128;  // (sample, step) rows per block
-constexpr int kV1Chunk = 512;    // obstacles staged in shared memory at once
-
-__global__ void __launch_bounds__(kV1Threads)
-swept_box_hits_v1_kernel(const float* __restrict__ axes,          // (B,S,N,9)
-                         const float* __restrict__ projc,         // (B,S,N,3)
-                         const uint8_t* __restrict__ step_valid,  // (B,S,N)
-                         const float* __restrict__ obstacles,     // (B,K,3)
-                         const uint8_t* __restrict__ obs_valid,   // (B,K)
-                         int S, int N, int K, float h0, float h1, float h2,
-                         uint8_t* __restrict__ hits) {            // (B,S)
-  __shared__ float px[kV1Chunk];
-  __shared__ float py[kV1Chunk];
-  __shared__ float pz[kV1Chunk];
-
-  const int b = blockIdx.y;
-  const int rows = S * N;
-  const int row = blockIdx.x * kV1Threads + threadIdx.x;
-  const size_t grow = static_cast<size_t>(b) * rows + row;
-  const bool active = row < rows && step_valid[grow] != 0;
-
-  float a[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  float c0 = 0.f, c1 = 0.f, c2 = 0.f;
-  if (active) {
-#pragma unroll
-    for (int i = 0; i < 9; ++i) a[i] = axes[grow * 9 + i];
-    c0 = projc[grow * 3 + 0];
-    c1 = projc[grow * 3 + 1];
-    c2 = projc[grow * 3 + 2];
-  }
-
-  const float* obs = obstacles + static_cast<size_t>(b) * K * 3;
-  const uint8_t* ovalid = obs_valid + static_cast<size_t>(b) * K;
-  bool hit = false;
-  for (int base = 0; base < K; base += kV1Chunk) {
-    const int n = min(kV1Chunk, K - base);
-    __syncthreads();  // the previous chunk is no longer read
-    for (int i = threadIdx.x; i < n; i += kV1Threads) {
-      const bool ok = ovalid[base + i] != 0;
-      px[i] = ok ? obs[(base + i) * 3 + 0] : kFar;
-      py[i] = ok ? obs[(base + i) * 3 + 1] : kFar;
-      pz[i] = ok ? obs[(base + i) * 3 + 2] : kFar;
-    }
-    __syncthreads();
-    if (active && !hit) {
-      for (int i = 0; i < n; ++i) {
-        if (inside(a, c0, c1, c2, h0, h1, h2, px[i], py[i], pz[i])) {
-          hit = true;
-          break;
-        }
-      }
-    }
-  }
-  // Every writer stores the same value, so concurrent stores are benign.
-  if (hit) hits[static_cast<size_t>(b) * S + row / N] = 1;
-}
-
-// ---------------------------------------------------------------------------
-// v2: the warp's bounding-sphere cull, then the exact test on survivors.
+// The kernel: the warp's bounding-sphere cull, then the exact test on
+// survivors.
 // ---------------------------------------------------------------------------
 
 constexpr int kWarps = 4;                   // warps (tiles) per block
@@ -308,25 +247,6 @@ extern "C" int swept_box_hits_launch(const void* axes, const void* projc,
   const dim3 grid(static_cast<unsigned>((tiles + kWarps - 1) / kWarps), B);
   swept_box_hits_kernel<<<grid, kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(axes), static_cast<const float*>(projc),
-      static_cast<const uint8_t*>(step_valid),
-      static_cast<const float*>(obstacles),
-      static_cast<const uint8_t*>(obs_valid), S, N, K, h0, h1, h2,
-      static_cast<uint8_t*>(hits));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The first kernel (v1), for comparison only; same contract.
-extern "C" int swept_box_hits_v1_launch(const void* axes, const void* projc,
-                                        const void* step_valid,
-                                        const void* obstacles,
-                                        const void* obs_valid, int B, int S,
-                                        int N, int K, float h0, float h1,
-                                        float h2, void* hits, void* stream) {
-  if (B == 0 || S == 0 || N == 0) return 0;
-  const dim3 grid((S * N + kV1Threads - 1) / kV1Threads, B);
-  swept_box_hits_v1_kernel<<<grid, kV1Threads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(axes), static_cast<const float*>(projc),
       static_cast<const uint8_t*>(step_valid),
       static_cast<const float*>(obstacles),

@@ -329,20 +329,19 @@ class FusedChain(NamedTuple):
 
 
 def run_fused_chain(c3: Config3, state, scans, scan_masks, positions, quats,
-                    v, w, tick=None) -> FusedChain:
+                    v, w) -> FusedChain:
     """Fused ticks along given poses: tick t takes scans[t] (B, N, 3) in
     the sensor frame, scan_masks[t], positions[t] (B, 3), quats[t]
-    (B, 4), v[t] and w[t] (B,), and the state the tick before left.
-    ``tick`` replaces ``c3.tick`` (for instance to time each tick)."""
-    tick = tick or c3.tick
+    (B, 4), v[t] and w[t] (B,), and the state the tick before left."""
     dev = c3.fmap.ground.device
     b = positions.shape[1]
     offset = torch.as_tensor(c3.offset, device=dev)
     goal = torch.as_tensor(np.tile(c3.goal, (b, 1)), device=dev)
     outs = []
     for t in range(len(scans)):
-        state, out = tick(c3.fmap, state, scans[t], scan_masks[t],
-                          positions[t], quats[t], offset, goal, v[t], w[t])
+        state, out = c3.tick(c3.fmap, state, scans[t], scan_masks[t],
+                             positions[t], quats[t], offset, goal, v[t],
+                             w[t])
         outs.append(out)
 
     def stack(field):
@@ -517,15 +516,14 @@ def config4_tick_inputs(c4: Config4, t: int, robots: int) -> dict:
                 odom_drift_yaw=torch.as_tensor(drift_yaw, device=dev))
 
 
-def config4_tick(c4: Config4, state, t: int, draws, tick=None, inputs=None):
+def config4_tick(c4: Config4, state, t: int, draws, inputs=None):
     """Tick ``t`` of the chain from ``state`` with this tick's MCL draws
     (``state_estimation.pf.MCLDraws``) and :func:`config4_tick_inputs`
-    (made here unless given); ``tick`` replaces
-    ``parallel.fleet.fleet_full_tick``. Returns (state, diag)."""
+    (made here unless given). Returns (state, diag)."""
     if inputs is None:
         inputs = config4_tick_inputs(c4, t, state.pos.shape[0])
     spec, ri, params = c4.specs
-    return (tick or fleet_full_tick)(
+    return fleet_full_tick(
         c4.cfg, c4.mb, spec, ri, params, c4.fmap, state, c4.scans, c4.masks,
         c4.offset, c4.goals, mcl_cfg=c4.mcl, submap_ctx=c4.submap,
         feature_map_pts=c4.walls, feature_ground_pts=c4.ground,
@@ -538,7 +536,7 @@ FLEET_DIAG = ("decision", "cmd_source", "ps_simple", "ps_rotate", "plan_ok",
 
 
 def run_fleet_full_chain(c4: Config4, state, draws_of, ticks: int,
-                         t0: int = 0, tick=None, forced=None, inputs_of=None):
+                         t0: int = 0, forced=None, inputs_of=None):
     """``ticks`` chained full ticks from tick ``t0``: tick t draws from
     ``draws_of(t)``. ``forced(t)``, when given, returns a dict of
     FleetFullState fields (the true pose and twist, the MCL state) to put
@@ -551,7 +549,7 @@ def run_fleet_full_chain(c4: Config4, state, draws_of, ticks: int,
         f = forced(t) if forced is not None else None
         if f:
             state = state._replace(**f)
-        state, diag = config4_tick(c4, state, t, draws_of(t), tick,
+        state, diag = config4_tick(c4, state, t, draws_of(t),
                                    inputs_of(t) if inputs_of else None)
         for k in FLEET_DIAG:
             outs[k].append(diag[k])
@@ -1156,34 +1154,30 @@ class MappingChain(NamedTuple):
     keyframes: list           # keyframe count after each scan
     edges: list               # edge count after each scan
     loop_closures: list       # the session's (i, j, fitness) at the end
-    scan_s: list              # seconds a scan, by the chain's clock
+    scan_s: list              # host seconds a scan
     stage_s: dict             # stage name → host seconds, one per run of it
 
 
-def run_mapping_chain(sess, sc: SlamScenario, scans_of=None,
-                      clock=time.perf_counter,
-                      elapsed=lambda a, b: b - a) -> MappingChain:
+def run_mapping_chain(sess, sc: SlamScenario, scans_of=None) -> MappingChain:
     """The closed loop: the scenario's scans through ``sess.process_scan``
     (``scans_of(t)`` gives scan t as (points, mask), :func:`slam_scan`
-    when not given). Each scan is timed by ``clock()`` marks (host time by
-    default; CUDA events on the card), read with ``elapsed(a, b)`` →
-    seconds once the run is over. Each stage, from its start to the
-    next's (the last to the scan's end), is timed on the host clock
-    (``time.perf_counter_ns``), whatever ``clock`` is, by the tracing
-    recorder's stage spans (a :func:`tracing.recording` block: the
-    recorder keeps none of them after the run)."""
+    when not given). Each scan is timed on the host clock, and each stage,
+    from its start to the next's (the last to the scan's end), by the
+    tracing recorder's stage spans (``time.perf_counter_ns``; a
+    :func:`tracing.recording` block: the recorder keeps none of them after
+    the run)."""
     pos, quat, kfs, edges, marks = [], [], [], [], []
     with tracing.recording() as kept:
         for t in range(sc.scans):
             pts, mask = scans_of(t) if scans_of else slam_scan(sc, t)
-            start = clock()
+            start = time.perf_counter()
             p, q = sess.process_scan(pts, mask)
-            marks.append((start, clock()))
+            marks.append((start, time.perf_counter()))
             pos.append(np.array(p, np.float32))
             quat.append(np.array(q, np.float32))
             kfs.append(sess.n_keyframes)
             edges.append(sess.n_edges)
-    scan_s = [elapsed(a, b) for a, b in marks]
+    scan_s = [b - a for a, b in marks]
     stage_s = tracing.stage_seconds(kept, "scan")
     return MappingChain(np.stack(pos), np.stack(quat), kfs, edges,
                         list(sess.loop_closures), scan_s, stage_s)

@@ -8,10 +8,9 @@ version beside it:
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 (built by :mod:`.build` at first use) or raises. Each wrapper counts its
-launches in its ``launches`` attribute. ``*_v1`` launch the first kernels,
-kept beside the redesigned ones for comparison (CUDA tensors only).
+launches in its ``launches`` attribute.
 """
 from dddmr_navigation_tpu_torch.ops.collision import (
-    swept_box_hits, swept_box_hits_plain, swept_box_hits_v1)
+    swept_box_hits, swept_box_hits_plain)
 from dddmr_navigation_tpu_torch.ops.distance_field import (
-    masked_min_distance, masked_min_distance_plain, masked_min_distance_v1)
+    masked_min_distance, masked_min_distance_plain)

@@ -35,15 +35,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 _VOID_P, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the library's entry points (see csrc/*.cu).
-# Each ``*_v1_launch`` is the first kernel of the same source, kept beside
-# the redesign for comparison, with the same signature.
-_HITS = [_VOID_P] * 5 + [_INT] * 4 + [_FLOAT] * 3 + [_VOID_P, _VOID_P]
-_DIST = [_VOID_P] * 4 + [_INT] * 3 + [_VOID_P, _VOID_P]
 SIGNATURES = {
-    "swept_box_hits_launch": _HITS,
-    "swept_box_hits_v1_launch": _HITS,
-    "masked_min_distance_launch": _DIST,
-    "masked_min_distance_v1_launch": _DIST,
+    "swept_box_hits_launch": (
+        [_VOID_P] * 5 + [_INT] * 4 + [_FLOAT] * 3 + [_VOID_P, _VOID_P]),
+    "masked_min_distance_launch": (
+        [_VOID_P] * 4 + [_INT] * 3 + [_VOID_P, _VOID_P]),
 }
 
 

@@ -12,8 +12,7 @@ the half extents ``half``. A point p is inside iff
 first culls, per warp tile of ``TILE_SAMPLES`` × ``TILE_STEPS`` rows, the
 obstacles outside a sphere that holds every box of the tile, and runs the
 exact test on the rest; :func:`swept_box_cull_plain` mirrors that cull in
-plain PyTorch (for the survivor counts and the tests), and
-:func:`swept_box_hits_v1` launches the first kernel, kept for comparison.
+plain PyTorch, for the tests.
 """
 from __future__ import annotations
 
@@ -67,28 +66,13 @@ def swept_box_hits(axes, projc, step_valid, obstacles, obs_valid, half):
         raise_unless_cpu(axes)
         return swept_box_hits_plain(axes, projc, step_valid, obstacles,
                                     obs_valid, half)
-    return _launch_hits("swept_box_hits_launch", swept_box_hits, axes, projc,
-                        step_valid, obstacles, obs_valid, half)
+    return _launch_hits(axes, projc, step_valid, obstacles, obs_valid, half)
 
 
 swept_box_hits.launches = 0
 
 
-def swept_box_hits_v1(axes, projc, step_valid, obstacles, obs_valid, half):
-    """The first kernel (every exact test, no cull) on CUDA tensors, for
-    timing comparisons; same arguments and result as
-    :func:`swept_box_hits`. Counts in its own ``launches``."""
-    return _launch_hits("swept_box_hits_v1_launch", swept_box_hits_v1, axes,
-                        projc, step_valid, obstacles, obs_valid, half)
-
-
-swept_box_hits_v1.launches = 0
-
-
-def _launch_hits(entry, counter, axes, projc, step_valid, obstacles,
-                 obs_valid, half):
-    if axes.device.type != "cuda":
-        raise ValueError(f"no kernel for tensors on {axes.device}")
+def _launch_hits(axes, projc, step_valid, obstacles, obs_valid, half):
     b, s, n = step_valid.shape
     k = obstacles.shape[1]
     check_cuda_inputs(
@@ -99,9 +83,10 @@ def _launch_hits(entry, counter, axes, projc, step_valid, obstacles,
         (obs_valid, (b, k), torch.bool))
     hits = torch.zeros((b, s), dtype=torch.uint8, device=axes.device)
     h0, h1, h2 = (float(x) for x in half)
-    launch(entry, axes, projc, step_valid.view(torch.uint8), obstacles,
-           obs_valid.view(torch.uint8), b, s, n, k, h0, h1, h2, hits)
-    counter.launches += 1
+    launch("swept_box_hits_launch", axes, projc, step_valid.view(torch.uint8),
+           obstacles, obs_valid.view(torch.uint8), b, s, n, k, h0, h1, h2,
+           hits)
+    swept_box_hits.launches += 1
     return hits.view(torch.bool)
 
 
@@ -161,12 +146,3 @@ def swept_box_cull_plain(axes, projc, step_valid, obstacles, obs_valid, half):
     keep = ~(d2 > (wr * wr)[..., None]) & rows.any(2, keepdim=True)
     return keep, rows
 
-
-def cull_survivor_fraction(axes, projc, step_valid, obstacles, obs_valid,
-                           half) -> float:
-    """The share of (valid row, obstacle) pairs whose obstacle survives the
-    row's tile cull, from :func:`swept_box_cull_plain`."""
-    keep, rows = swept_box_cull_plain(axes, projc, step_valid, obstacles,
-                                      obs_valid, half)
-    pairs = (keep.sum(2) * rows.sum(2)).sum()
-    return float(pairs) / max(1, int(step_valid.sum()) * obstacles.shape[1])

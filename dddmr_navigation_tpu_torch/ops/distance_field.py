@@ -10,9 +10,7 @@ to :func:`masked_min_distance_plain`, CUDA tensors to the hand-written
 kernel in ``csrc/masked_min_distance.cu``; anything else raises. On the
 card the kernel computes only the valid points (and the parking point
 once); :func:`masked_min_distance_compacted_plain` mirrors that point set
-in plain PyTorch (for the counts and the tests), and
-:func:`masked_min_distance_v1` launches the first kernel, kept for
-comparison.
+in plain PyTorch, for the tests.
 """
 from __future__ import annotations
 
@@ -62,28 +60,13 @@ def masked_min_distance(queries, q_mask, points, p_mask):
     if queries.device.type != "cuda":
         raise_unless_cpu(queries)
         return masked_min_distance_plain(queries, q_mask, points, p_mask)
-    return _launch_dist("masked_min_distance_launch", masked_min_distance,
-                        queries, q_mask, points, p_mask)
+    return _launch_dist(queries, q_mask, points, p_mask)
 
 
 masked_min_distance.launches = 0
 
 
-def masked_min_distance_v1(queries, q_mask, points, p_mask):
-    """The first kernel (every pair, one query a thread) on CUDA tensors,
-    for timing comparisons; same arguments and result as
-    :func:`masked_min_distance`. Counts in its own ``launches``."""
-    return _launch_dist("masked_min_distance_v1_launch",
-                        masked_min_distance_v1, queries, q_mask, points,
-                        p_mask)
-
-
-masked_min_distance_v1.launches = 0
-
-
-def _launch_dist(entry, counter, queries, q_mask, points, p_mask):
-    if queries.device.type != "cuda":
-        raise ValueError(f"no kernel for tensors on {queries.device}")
+def _launch_dist(queries, q_mask, points, p_mask):
     b, q, _ = queries.shape
     m = points.shape[1]
     check_cuda_inputs(
@@ -92,9 +75,9 @@ def _launch_dist(entry, counter, queries, q_mask, points, p_mask):
         (points, (b, m, 3), torch.float32),
         (p_mask, (b, m), torch.bool))
     out = torch.empty((b, q), dtype=torch.float32, device=queries.device)
-    launch(entry, queries, q_mask.view(torch.uint8), points,
-           p_mask.view(torch.uint8), b, q, m, out)
-    counter.launches += 1
+    launch("masked_min_distance_launch", queries, q_mask.view(torch.uint8),
+           points, p_mask.view(torch.uint8), b, q, m, out)
+    masked_min_distance.launches += 1
     return out
 
 

@@ -16,8 +16,8 @@ from dddmr_navigation_tpu.ops.collision import swept_box_hits as jax_hits
 from dddmr_navigation_tpu.ops.distance_field import (
     masked_min_distance as jax_min_dist)
 from dddmr_navigation_tpu_torch.ops import (
-    swept_box_hits, swept_box_hits_plain, swept_box_hits_v1,
-    masked_min_distance, masked_min_distance_plain, masked_min_distance_v1)
+    swept_box_hits, swept_box_hits_plain,
+    masked_min_distance, masked_min_distance_plain)
 from dddmr_navigation_tpu_torch.ops import adversarial
 from dddmr_navigation_tpu_torch.ops.collision import (
     _tiles, swept_box_cull_plain)
@@ -172,7 +172,7 @@ def test_masked_min_distance_compaction_keeps_every_minimum(seed, q):
 
 
 # ---------------------------------------------------------------------------
-# on the card: each kernel against its plain version and its first kernel
+# on the card: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
 @pytest.fixture
@@ -206,52 +206,65 @@ def test_masked_min_distance_kernel_matches_plain(cuda_device):
     assert torch.equal(got, masked_min_distance_plain(*args))
 
 
-# The fused config-3 tick's shapes: one robot, 64×128 = 8,192 samples of
-# 40 steps, near-K 128 obstacles; the stick-path call's 8,192·40 = 327,680
-# queries and the toward-plan call's 8,192 against a 128-pose prune plan.
-FUSED_S, FUSED_N, FUSED_K, FUSED_P = 8192, 40, 128, 128
+# The ticks' call shapes: the headline tick's 64 robots of 289 samples and
+# the fused config-3 tick's one robot of 64×128 = 8,192, each of 40 steps
+# against near-K 128 obstacles; the stick-path call's queries are every
+# (sample, step) row (11,560 a robot at the headline, 327,680 fused), the
+# toward-plan call's one a sample, both against a 128-pose prune plan.
+HEAD_B, HEAD_S = 64, 289
+FUSED_S, TICK_N, TICK_K, TICK_P = 8192, 40, 128, 128
 
 
-def fused_box_inputs(seed):
-    """Random boxes and obstacles at the fused shapes, spread so that some
+def tick_box_inputs(b, s, seed, valid_share):
+    """Random boxes and obstacles at a tick's shapes, spread so that some
     samples hit and others do not (no face margin: kernel and plain
     version round the same way, so they agree exactly at any distance)."""
     rng = np.random.default_rng(seed)
-    axes = np.linalg.qr(rng.normal(size=(1, FUSED_S, FUSED_N, 3, 3)))[0]
+    axes = np.linalg.qr(rng.normal(size=(b, s, TICK_N, 3, 3)))[0]
     axes = np.ascontiguousarray(np.swapaxes(axes, -1, -2), np.float32)
-    centers = rng.uniform(-3.0, 3.0, size=(1, FUSED_S, FUSED_N, 3))
+    centers = rng.uniform(-3.0, 3.0, size=(b, s, TICK_N, 3))
     projc = np.einsum("bsnkj,bsnj->bsnk", axes.astype(np.float64),
                       centers).astype(np.float32)
-    step_valid = rng.uniform(size=(1, FUSED_S, FUSED_N)) < 0.8
-    obs = rng.uniform(-6.0, 6.0, size=(1, FUSED_K, 3)).astype(np.float32)
-    obs_valid = rng.uniform(size=(1, FUSED_K)) < 0.9
+    step_valid = rng.uniform(size=(b, s, TICK_N)) < valid_share
+    obs = rng.uniform(-6.0, 6.0, size=(b, TICK_K, 3)).astype(np.float32)
+    obs_valid = rng.uniform(size=(b, TICK_K)) < 0.9
     return axes, projc, step_valid, obs, obs_valid
 
 
 @pytest.mark.cuda
-def test_swept_box_hits_kernel_matches_plain_at_fused_shapes(cuda_device):
+@pytest.mark.parametrize("b, s, seed, valid_share", [
+    (HEAD_B, HEAD_S, 7, 0.6), (1, FUSED_S, 2, 0.8)],
+    ids=["headline", "fused"])
+def test_swept_box_hits_kernel_matches_plain_at_tick_shapes(
+        cuda_device, b, s, seed, valid_share):
     args = [torch.as_tensor(a, device=cuda_device)
-            for a in fused_box_inputs(2)]
+            for a in tick_box_inputs(b, s, seed, valid_share)]
     before = swept_box_hits.launches
     got = swept_box_hits(*args, HALF)
     torch.cuda.synchronize()
     assert swept_box_hits.launches == before + 1
     want = swept_box_hits_plain(*args, HALF)
-    assert got.shape == (1, FUSED_S)
+    assert got.shape == (b, s)
     assert 0 < int(want.sum()) < want.numel()  # both outcomes occur
     assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("q", [FUSED_S * FUSED_N, FUSED_S])
-def test_masked_min_distance_kernel_matches_plain_at_fused_shapes(
-        cuda_device, q):
-    rng = np.random.default_rng(q)
-    queries = (rng.uniform(-3, 3, size=(1, q, 3)) + 12.0).astype(np.float32)
-    points = (rng.uniform(-3, 3, size=(1, FUSED_P, 3)) + 12.0).astype(
+@pytest.mark.parametrize("b, q, seed, q_share, p_fill", [
+    (HEAD_B, HEAD_S * TICK_N, 8, 0.5, None),
+    (1, FUSED_S * TICK_N, FUSED_S * TICK_N, 0.8, 100),
+    (1, FUSED_S, FUSED_S, 0.8, 100)],
+    ids=["headline-stick-path", "fused-stick-path", "fused-toward-plan"])
+def test_masked_min_distance_kernel_matches_plain_at_tick_shapes(
+        cuda_device, b, q, seed, q_share, p_fill):
+    rng = np.random.default_rng(seed)
+    queries = (rng.uniform(-3, 3, size=(b, q, 3)) + 12.0).astype(np.float32)
+    points = (rng.uniform(-3, 3, size=(b, TICK_P, 3)) + 12.0).astype(
         np.float32)
-    q_mask = rng.uniform(size=(1, q)) < 0.8
-    p_mask = np.arange(FUSED_P)[None] < 100       # a partly filled plan
+    q_mask = rng.uniform(size=(b, q)) < q_share
+    if p_fill is None:                  # each robot's plan its own length
+        p_fill = rng.integers(1, TICK_P, size=(b, 1))
+    p_mask = np.arange(TICK_P)[None].repeat(b, 0) < p_fill  # partly filled
     args = [torch.as_tensor(a, device=cuda_device)
             for a in (queries, q_mask, points, p_mask)]
     before = masked_min_distance.launches
@@ -263,76 +276,25 @@ def test_masked_min_distance_kernel_matches_plain_at_fused_shapes(
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_swept_box_hits_kernel_matches_plain_and_v1_on_adversarial_inputs(
+def test_swept_box_hits_kernel_matches_plain_on_adversarial_inputs(
         cuda_device, seed):
     args = [torch.as_tensor(a, device=cuda_device)
             for a in adversarial.box_inputs(seed)]
     got = swept_box_hits(*args, adversarial.HALF)
-    v1 = swept_box_hits_v1(*args, adversarial.HALF)
     want = swept_box_hits_plain(*args, adversarial.HALF)
     torch.cuda.synchronize()
     assert 0 < int(want.sum()) < want.numel()
-    assert torch.equal(got, want) and torch.equal(v1, want)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed", [0, 1, 2])
 @pytest.mark.parametrize("q", [1000, 40000])        # narrow and wide variant
-def test_masked_min_distance_kernel_matches_plain_and_v1_on_adversarial_inputs(
+def test_masked_min_distance_kernel_matches_plain_on_adversarial_inputs(
         cuda_device, seed, q):
     args = [torch.as_tensor(a, device=cuda_device)
             for a in adversarial.dist_inputs(seed, q=q)]
     got = masked_min_distance(*args)
-    v1 = masked_min_distance_v1(*args)
     want = masked_min_distance_plain(*args)
     torch.cuda.synchronize()
-    assert torch.equal(got, want) and torch.equal(v1, want)
-
-
-# The headline tick's shapes: 64 robots, 289 samples of 40 steps, near-K
-# 128; the stick-path call's 289·40 = 11,560 queries per robot.
-HEAD_B, HEAD_S = 64, 289
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", ["headline", "fused"])
-def test_swept_box_hits_kernel_matches_v1(cuda_device, shape):
-    b, s = (HEAD_B, HEAD_S) if shape == "headline" else (1, FUSED_S)
-    rng = np.random.default_rng(7)
-    axes = np.linalg.qr(rng.normal(size=(b, s, FUSED_N, 3, 3)))[0]
-    axes = np.ascontiguousarray(np.swapaxes(axes, -1, -2), np.float32)
-    centers = rng.uniform(-3.0, 3.0, size=(b, s, FUSED_N, 3))
-    projc = np.einsum("bsnkj,bsnj->bsnk", axes.astype(np.float64),
-                      centers).astype(np.float32)
-    step_valid = rng.uniform(size=(b, s, FUSED_N)) < 0.6
-    obs = rng.uniform(-6.0, 6.0, size=(b, FUSED_K, 3)).astype(np.float32)
-    obs_valid = rng.uniform(size=(b, FUSED_K)) < 0.9
-    args = [torch.as_tensor(a, device=cuda_device)
-            for a in (axes, projc, step_valid, obs, obs_valid)]
-    got = swept_box_hits(*args, HALF)
-    v1 = swept_box_hits_v1(*args, HALF)
-    want = swept_box_hits_plain(*args, HALF)
-    torch.cuda.synchronize()
-    assert 0 < int(want.sum()) < want.numel()
-    assert torch.equal(got, want) and torch.equal(v1, want)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", ["headline", "fused"])
-def test_masked_min_distance_kernel_matches_v1(cuda_device, shape):
-    b, q = ((HEAD_B, HEAD_S * FUSED_N) if shape == "headline"
-            else (1, FUSED_S * FUSED_N))
-    rng = np.random.default_rng(8)
-    queries = (rng.uniform(-3, 3, size=(b, q, 3)) + 12.0).astype(np.float32)
-    points = (rng.uniform(-3, 3, size=(b, FUSED_P, 3)) + 12.0).astype(
-        np.float32)
-    q_mask = rng.uniform(size=(b, q)) < 0.5
-    p_mask = np.arange(FUSED_P)[None].repeat(b, 0) < rng.integers(
-        1, FUSED_P, size=(b, 1))
-    args = [torch.as_tensor(a, device=cuda_device)
-            for a in (queries, q_mask, points, p_mask)]
-    got = masked_min_distance(*args)
-    v1 = masked_min_distance_v1(*args)
-    want = masked_min_distance_plain(*args)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want) and torch.equal(v1, want)
+    assert torch.equal(got, want)

@@ -1,5 +1,5 @@
 """Time variants of the port's two CUDA kernels on the card, per call, in
-turns with the first kernel (v1).
+turns with the unmodified source.
 
     python3 tools/kernel_variants.py
 
@@ -10,8 +10,9 @@ under ``_build/variants/``. The calls are those of the headline chain at
 ticks 25 and 49 and of the fused config-3 chain (with the extra box of
 ``chip_smoke.py``) at ticks 0, 10 and 19. Every variant must equal the
 plain PyTorch version bit for bit; each prints its profiler device µs per
-call, in the order v1, variants, variants reversed, v1, and the sum over
-the calls. Needs one CUDA card.
+call, in the order variants, variants reversed, the first of each kernel's
+(``"8x4"``, ``"qpt4"``) being the unmodified source, so that it opens and
+closes the turns, and the sum over the calls. Needs one CUDA card.
 """
 import ctypes
 import os
@@ -70,9 +71,9 @@ def build_variants(build):
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed for {kernel} {name}:\n{out}")
         handle = ctypes.CDLL(lib)
-        for entry in (f"{kernel}_launch", f"{kernel}_v1_launch"):
-            getattr(handle, entry).argtypes = build.SIGNATURES[entry]
-            getattr(handle, entry).restype = ctypes.c_int
+        entry = f"{kernel}_launch"
+        getattr(handle, entry).argtypes = build.SIGNATURES[entry]
+        getattr(handle, entry).restype = ctypes.c_int
         libs.setdefault(kernel, {})[name] = handle
     return libs
 
@@ -126,7 +127,8 @@ def record_calls(np, torch, dev, entry, ops):
     return calls
 
 
-def launch(torch, dev, lib, entry_name, kernel, args):
+def launch(torch, dev, lib, kernel, args):
+    entry_name = f"{kernel}_launch"
     stream = torch.cuda.current_stream().cuda_stream
     if kernel == "swept_box_hits":
         axes, projc, valid, obs, obs_valid, half = args
@@ -179,8 +181,7 @@ def main():
     plain = {"swept_box_hits": ops.swept_box_hits_plain,
              "masked_min_distance": ops.masked_min_distance_plain}
     for kernel, variants in VARIANTS.items():
-        first = next(iter(variants))
-        order = ["v1", *variants, *reversed(list(variants)), "v1"]
+        order = [*variants, *reversed(list(variants))]
         totals = {}
         for (k, phase, tick, index), args in calls.items():
             if k != kernel:
@@ -188,18 +189,14 @@ def main():
             want = plain[kernel](*args)
             times = {}
             for name in order:
-                lib = libs[kernel][first if name == "v1" else name]
-                entry_name = f"{kernel}_v1_launch" if name == "v1" else (
-                    f"{kernel}_launch")
-                got = launch(torch, dev, lib, entry_name, kernel, args)
+                lib = libs[kernel][name]
+                got = launch(torch, dev, lib, kernel, args)
                 if not torch.equal(got, want):
                     raise SystemExit(f"{kernel} {name} differs from plain at "
                                      f"{phase} tick {tick}")
-                key = f"{kernel}_v1_kernel" if name == "v1" else (
-                    f"{kernel}_kernel")
                 times.setdefault(name, []).append(device_us(
-                    torch, lambda: launch(torch, dev, lib, entry_name,
-                                          kernel, args), key))
+                    torch, lambda: launch(torch, dev, lib, kernel, args),
+                    f"{kernel}_kernel"))
             for name, ts in times.items():
                 totals[name] = totals.get(name, 0.0) + sum(ts) / len(ts)
             print(f"{kernel} {phase} tick {tick} call {index} "
