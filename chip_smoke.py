@@ -29,7 +29,8 @@ It checks results and times nothing: the benchmark (``BENCHMARK.json``,
      path: per-tick state codes, best indices and found counts must be
      equal, and the launch counters must show each kernel launched as
      often as the chain calls it (one collision sweep and two distance
-     calls per tick);
+     calls per tick, no successor-table walk: the headline tick plans
+     nothing); the plain path runs every kernel's plain version;
   5. holds tick 0, and the state codes of every tick of the chain, against
      the JAX package's golden file
      (``dddmr_navigation_tpu_torch/testdata/headline_tick0.npz``).
@@ -54,12 +55,15 @@ steps, one robot; any failed check raises:
      iterations and best indices equal on both; against the golden the
      integer outputs equal (a best index may differ only as a tie within
      1e-5 of JAX's cost), the composed dGraph and plan positions within
-     1e-5 m; one ``swept_box_hits`` and two ``masked_min_distance``
-     launches per tick;
+     1e-5 m; one ``swept_box_hits``, two ``masked_min_distance`` and
+     one ``walk_table`` launch per tick;
  11. as step 3, on the fused tick's arguments at ticks 0, 10 and 19 of
      the chain run with one more box in the robot's path (config 3's own
      box is never in a rollout's way), so that the plain hits hold both
-     outcomes.
+     outcomes; and the successor-table walk kernel against its plain
+     version at every walk of that run, and at a copy of each whose
+     paths are cut (made stuck three hops in): bit for bit, with walks
+     that reach the goal and walks that stop short of it.
 
 Then the fleet phase, bench config 4 (``bench.py::bench_config4``) at full
 width: 64 robots on the 12×8 m warehouse floor (1,617 ground nodes), MCL
@@ -74,14 +78,16 @@ rotate recovery; any failed check raises:
      integer outputs equal and floats bit for bit, three ``swept_box_hits``
      launches (simple rollouts; the rotate-shortest-angle and the
      recovery's rotate-in-place rollouts, S = 2) and two
-     ``masked_min_distance`` launches per tick;
+     ``masked_min_distance`` launches and one ``walk_table`` launch per
+     tick;
  15. the golden chain with JAX's own MCL draws, each tick teacher-forced
      on the recorded true pose, twist and MCL state: decisions, command
      sources, planner states, plan_ok and iterations equal JAX's, commands,
      plan poses and MCL errors within 1e-5;
  16. as step 3, on the arguments of warm ticks 1 and 6 with four robots'
      obstacles replaced by a ring that every rollout hits, so that every
-     call shape (S = 289 and S = 2) holds both outcomes.
+     call shape (S = 289 and S = 2) holds both outcomes; the walk kernel
+     as in step 11, at every walk of ticks 0-6.
 
 Then the sharded phase, on the fleet phase's world, start state, draws
 and inputs (64 robots, full width); any failed check raises:
@@ -91,12 +97,14 @@ and inputs (64 robots, full width); any failed check raises:
  24. ``sharded_fleet_full_tick`` over the cold tick and two warm ticks:
      every output and the whole state bit-equal to the unsharded
      ``fleet_full_tick``, the reduced count equal to its TRAJECTORY_FOUND
-     count, three ``swept_box_hits`` and two ``masked_min_distance``
-     launches a tick; ``sharded_fleet_tick`` (headline, 64 robots) and
-     ``sharded_fleet_tick_multihost`` over a (1, 1) ``(dcn, ici)`` mesh
-     equal to ``fleet_tick``, their reduced mean cost bit-equal;
+     count, three ``swept_box_hits``, two ``masked_min_distance`` and
+     one ``walk_table`` launch a tick; ``sharded_fleet_tick`` (headline,
+     64 robots) and ``sharded_fleet_tick_multihost`` over a (1, 1)
+     ``(dcn, ici)`` mesh equal to ``fleet_tick``, their reduced mean cost
+     bit-equal;
  25. as step 3, on the sharded tick's arguments at ticks 1 and 2 with
-     four robots ringed; ``destroy_process_group``.
+     four robots ringed; the walk kernel as in step 11, at every walk of
+     ticks 0-2; ``destroy_process_group``.
 
 Then the session phase: one robot's ``NavigationSession`` through the
 session demo's scenario (``entry.session_scenario()``: the 14×8 m floor at
@@ -114,8 +122,9 @@ and a 0.2 m/s zone); any failed check raises:
      field within 1e-5;
  20. runs the scenario closed loop on the kernel path and on the plain
      path: equal bit for bit, SUCCESS within 0.6 m of the goal, more than
-     0.2 m from the wall, never inside the no-entry zone, both kernels
-     launched;
+     0.2 m from the wall, never inside the no-entry zone, all three
+     kernels launched; the walk kernel as in step 11, at every walk of
+     the kernel path's loop (1 × 41,824 edge states);
  21. as step 3, on the arguments of the align-heading ticks 3 and 4 (both
      generators run), tick 4's collision calls with a ring that every
      rollout hits: the simple call (1, 66, 64, K 2,048), the rotate call
@@ -241,6 +250,7 @@ FUSED_CHECK_TICKS = (0, 10, FUSED_TICKS - 1)
 FUSED_CHECK_BOX = ((9.1, 7.6, 0.0), (9.5, 8.0, 1.0))
 
 FLEET_PER_TICK = {"swept_box_hits": 3, "masked_min_distance": 2}
+WALKS_PER_TICK = 1                # one extraction a fused or fleet tick
 FLEET_CHECK_TICKS = (1, 6)        # kernel vs plain on these warm ticks
 FLEET_RING_ROBOTS = (0, 1, 2, 3)  # their recorded obstacles get a ring
 FLEET_SEED = 4                    # the chains' torch.Generator seed
@@ -428,14 +438,101 @@ def adversarial_checks(torch, dev, kernels):
             print(f"adversarial {name} {shapes}: kernel equal to plain")
 
 
+@contextlib.contextmanager
+def walk_calling(fn):
+    """Point the extractions at another function for the walk kernel's
+    call (``planning/global_/wavefront.py::walk_table``)."""
+    from dddmr_navigation_tpu_torch.planning.global_ import wavefront
+    saved = wavefront.walk_table
+    wavefront.walk_table = fn
+    try:
+        yield
+    finally:
+        wavefront.walk_table = saved
+
+
+@contextlib.contextmanager
+def plain_path(ops):
+    """Every kernel call on its plain PyTorch version."""
+    with critics_calling(ops.swept_box_hits_plain,
+                         ops.masked_min_distance_plain), \
+            walk_calling(ops.walk_table_plain):
+        yield
+
+
+@contextlib.contextmanager
+def walks_recorded(ops):
+    """Keep the arguments of every successor-table walk the extractions
+    make, each still run by the kernel."""
+    calls = []
+
+    def rec(*args):
+        calls.append(args)
+        return ops.walk_table(*args)
+    with walk_calling(rec):
+        yield calls
+
+
+def cut_walk(torch, args):
+    """A walk's arguments with each robot's path made stuck at the state
+    three hops after its first, so that it stops short of the goal."""
+    succ, stuck, e0 = args[:3]
+    e = e0
+    for _ in range(3):
+        e = succ.gather(1, e[:, None])[:, 0]
+    stuck = stuck.clone()
+    stuck[torch.arange(e.shape[0], device=e.device), e] = True
+    return (succ, stuck, e0) + tuple(args[3:])
+
+
+def check_walks(torch, ops, calls, what):
+    """The walk kernel against its plain version at every recorded call and
+    at its cut copy: idxs, valids, length and final equal bit for bit,
+    dtypes included. Over them some robot's walk must reach its goal and
+    some stop short of it, so that the comparison could fail either way."""
+    check(len(calls) > 0, f"{what}: no successor-table walk recorded")
+    before = ops.walk_table.launches
+    reached = stopped = 0
+    for i, args in enumerate(calls):
+        for tag, a in (("", args), (" cut", cut_walk(torch, args))):
+            got = ops.walk_table(*a)
+            want = ops.walk_table_plain(*a)
+            torch.cuda.synchronize()
+            for name, x, y in zip(("idxs", "valids", "length", "final"),
+                                  got, want):
+                check(x.dtype == y.dtype and torch.equal(x, y),
+                      f"{what} walk {i}{tag}: {name} differs from plain")
+            at_goal = want[3] == a[6]
+            reached += int(at_goal.sum())
+            stopped += int((~at_goal).sum())
+    check(ops.walk_table.launches == before + 2 * len(calls),
+          f"{what}: the walk kernel launched "
+          f"{ops.walk_table.launches - before} times for {2 * len(calls)} "
+          f"walks")
+    check(reached > 0 and stopped > 0, f"{what}: {reached} walks reach "
+          f"the goal and {stopped} stop short; the comparison could not "
+          f"fail both ways")
+    print(f"{what}: walk kernel equal to plain at {len(calls)} walks and "
+          f"their cut copies ({reached} robots' walks reach the goal, "
+          f"{stopped} stop short)")
+
+
 def reset_launches(ops):
     ops.swept_box_hits.launches = 0
     ops.masked_min_distance.launches = 0
+    ops.walk_table.launches = 0
 
 
 def read_launches(ops):
     return {"swept_box_hits": ops.swept_box_hits.launches,
-            "masked_min_distance": ops.masked_min_distance.launches}
+            "masked_min_distance": ops.masked_min_distance.launches,
+            "walk_table": ops.walk_table.launches}
+
+
+def want_launches(per_tick, walks_per_tick, ticks):
+    """Each kernel's launches over ``ticks`` ticks."""
+    return {**{k: n * ticks for k, n in per_tick.items()},
+            "walk_table": walks_per_tick * ticks}
 
 
 def main():
@@ -516,10 +613,9 @@ def headline_phase(np, torch, dev, entry, ops, kernels):
     torch.cuda.synchronize()
     launches = read_launches(ops)
     print(f"launches in the {TICKS}-tick chain: {launches}")
-    check(launches == {k: n * TICKS for k, n in PER_TICK.items()},
-          f"launch counts {launches}, expected {TICKS} and {2 * TICKS}")
-    with critics_calling(ops.swept_box_hits_plain,
-                         ops.masked_min_distance_plain):
+    want = want_launches(PER_TICK, 0, TICKS)
+    check(launches == want, f"launch counts {launches}, expected {want}")
+    with plain_path(ops):
         plain = entry.run_chain(cfg, plans, state, obstacles, obs_valid, TICKS)
     torch.cuda.synchronize()
     check(read_launches(ops) == launches, "plain chain launched a kernel")
@@ -661,11 +757,10 @@ def fused_phase(np, torch, dev, entry, ops, kernels):
     torch.cuda.synchronize()
     launches = read_launches(ops)
     print(f"launches in the {FUSED_TICKS}-tick fused chain: {launches}")
-    check(launches == {k: n * FUSED_TICKS for k, n in PER_TICK.items()},
-          f"fused launch counts {launches}, expected {FUSED_TICKS} and "
-          f"{2 * FUSED_TICKS}")
-    with critics_calling(ops.swept_box_hits_plain,
-                         ops.masked_min_distance_plain):
+    want = want_launches(PER_TICK, WALKS_PER_TICK, FUSED_TICKS)
+    check(launches == want, f"fused launch counts {launches}, expected "
+          f"{want}")
+    with plain_path(ops):
         plain = run()
     torch.cuda.synchronize()
     check(read_launches(ops) == launches, "plain chain launched a kernel")
@@ -721,12 +816,14 @@ def fused_phase(np, torch, dev, entry, ops, kernels):
     n_check = max(FUSED_CHECK_TICKS) + 1
     with critics_calling(recorder("swept_box_hits", ops.swept_box_hits),
                          recorder("masked_min_distance",
-                                  ops.masked_min_distance)):
+                                  ops.masked_min_distance)), \
+            walks_recorded(ops) as walks:
         entry.run_fused_chain(c3, state0, box_scans[:n_check],
                               box_masks[:n_check],
                               *(x[:n_check] for x in poses))
     torch.cuda.synchronize()
     check_kernels(kernels, calls, FUSED_CHECK_TICKS)
+    check_walks(torch, ops, walks, "fused")
 
 
 def with_ring(name, args, robots):
@@ -798,11 +895,10 @@ def fleet_phase(np, torch, dev, entry, ops, kernels, shared):
     torch.cuda.synchronize()
     launches = read_launches(ops)
     print(f"launches in the {ticks}-tick fleet chain: {launches}")
-    check(launches == {k: v * ticks for k, v in FLEET_PER_TICK.items()},
-          f"fleet launch counts {launches}, expected "
-          f"{ {k: v * ticks for k, v in FLEET_PER_TICK.items()} }")
-    with critics_calling(ops.swept_box_hits_plain,
-                         ops.masked_min_distance_plain):
+    want = want_launches(FLEET_PER_TICK, WALKS_PER_TICK, ticks)
+    check(launches == want, f"fleet launch counts {launches}, expected "
+          f"{want}")
+    with plain_path(ops):
         plain, pfinal = run()
     torch.cuda.synchronize()
     check(read_launches(ops) == launches, "plain chain launched a kernel")
@@ -850,12 +946,14 @@ def fleet_phase(np, torch, dev, entry, ops, kernels, shared):
     recorder, calls = recorder_pair(FLEET_CHECK_TICKS, FLEET_PER_TICK)
     with critics_calling(recorder("swept_box_hits", ops.swept_box_hits),
                          recorder("masked_min_distance",
-                                  ops.masked_min_distance)):
+                                  ops.masked_min_distance)), \
+            walks_recorded(ops) as walks:
         run(n_ticks=max(FLEET_CHECK_TICKS) + 1)
     torch.cuda.synchronize()
     calls = {name: [(t, with_ring(name, a, FLEET_RING_ROBOTS))
                     for t, a in cs] for name, cs in calls.items()}
     check_kernels(kernels, calls, FLEET_CHECK_TICKS, FLEET_PER_TICK)
+    check_walks(torch, ops, walks, "fleet")
 
 
 def session_phase(np, torch, dev, entry, ops, kernels):
@@ -905,14 +1003,14 @@ def session_phase(np, torch, dev, entry, ops, kernels):
         return ch, s_
 
     reset_launches(ops)
-    chain, _ = closed_loop()
+    with walks_recorded(ops) as walks:
+        chain, _ = closed_loop()
     launches = read_launches(ops)
     n = len(chain.vx)
     print(f"launches in the {n}-tick session chain: {launches}")
     check(all(v > 0 for v in launches.values()),
           f"a kernel was not launched in the session chain: {launches}")
-    with critics_calling(ops.swept_box_hits_plain,
-                         ops.masked_min_distance_plain):
+    with plain_path(ops):
         plain, _ = closed_loop()
     check(read_launches(ops) == launches, "plain chain launched a kernel")
     for f in chain._fields:
@@ -945,6 +1043,7 @@ def session_phase(np, torch, dev, entry, ops, kernels):
           f"session did not succeed near the goal ({to_goal} m)")
     check(clearance > 0.2, f"session came within {clearance} m of the wall")
     check(entered == 0, "session entered the no-entry zone")
+    check_walks(torch, ops, walks, "session")
 
     # 21. the kernels at the session's call shapes, from the align-heading
     # ticks at the start (both generators run), the later tick's collision
@@ -1065,7 +1164,7 @@ def _sharded_checks(torch, entry, ops, kernels, c4, state0, draws, inputs, b,
     s_out, s_state, found = sharded(SHARDED_TICKS)
     torch.cuda.synchronize()
     launches = read_launches(ops)
-    want = {k: v * SHARDED_TICKS for k, v in FLEET_PER_TICK.items()}
+    want = want_launches(FLEET_PER_TICK, WALKS_PER_TICK, SHARDED_TICKS)
     check(launches == want, f"sharded launch counts {launches}, expected "
           f"{want}")
     u_out, u_state = unsharded(SHARDED_TICKS)
@@ -1119,12 +1218,14 @@ def _sharded_checks(torch, entry, ops, kernels, c4, state0, draws, inputs, b,
     recorder, calls = recorder_pair(SHARDED_CHECK_TICKS, FLEET_PER_TICK)
     with critics_calling(recorder("swept_box_hits", ops.swept_box_hits),
                          recorder("masked_min_distance",
-                                  ops.masked_min_distance)):
+                                  ops.masked_min_distance)), \
+            walks_recorded(ops) as walks:
         sharded(max(SHARDED_CHECK_TICKS) + 1)
     torch.cuda.synchronize()
     calls = {name: [(t, with_ring(name, a, FLEET_RING_ROBOTS))
                     for t, a in cs] for name, cs in calls.items()}
     check_kernels(kernels, calls, SHARDED_CHECK_TICKS, FLEET_PER_TICK)
+    check_walks(torch, ops, walks, "sharded")
 
 
 def _pose_graph(np, submaps, map_pts, ground_pts):

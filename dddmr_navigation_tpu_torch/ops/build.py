@@ -40,6 +40,7 @@ SIGNATURES = {
         [_VOID_P] * 5 + [_INT] * 4 + [_FLOAT] * 3 + [_VOID_P, _VOID_P]),
     "masked_min_distance_launch": (
         [_VOID_P] * 4 + [_INT] * 3 + [_VOID_P, _VOID_P]),
+    "walk_table_launch": [_VOID_P] * 7 + [_INT] * 3 + [_VOID_P] * 5,
 }
 
 

@@ -25,6 +25,7 @@ import torch
 from dddmr_navigation_tpu_torch.rounding import (
     acos_xla, atan2_xla, exp_fma, fma_dot, fma_norm, recip)
 from dddmr_navigation_tpu_torch.ops.fixpoint import iterate_to_fixpoint
+from dddmr_navigation_tpu_torch.ops.walk import walk_table
 
 
 class WavefrontResult(NamedTuple):
@@ -188,50 +189,6 @@ def wavefront_distances(nbr_idx, nbr_dist, nbr_valid, enter_cost,
                            iters=iters)
 
 
-def _walk_table(succ, stuck, e0, stuck0, node_of, start_idx, goal_idx,
-                max_len: int):
-    """The greedy-descent walk over per-robot successor tables.
-
-    Terminal states (stuck, or at the goal) are rewritten to self-loops,
-    then the walk is one table gather per step; validity, length and the
-    final node come afterwards from the state sequence, as the JAX version
-    recovers them.
-
-    Args:
-      succ, stuck: (B, S) successor table and no-continuation flags.
-      e0, stuck0: (B,) state after the start's first hop, and whether that
-        hop was impossible.
-      node_of: (S,) node emitted on arrival in each state.
-      start_idx, goal_idx: (B,).
-
-    Returns (idxs (B, L), valids (B, L), length (B,), final (B,)).
-    """
-    b, s = succ.shape
-    term = stuck | (node_of == goal_idx[:, None])
-    succ2 = torch.where(term, torch.arange(s, device=succ.device), succ)
-    e = e0[:, None]
-    states = [e]
-    for _ in range(max_len - 2):
-        e = succ2.gather(1, e)
-        states.append(e)
-    es = torch.cat(states, dim=1)                                # (B, L-1)
-    idxs_raw = torch.cat([start_idx[:, None], node_of[es]], dim=1)
-    flags = torch.cat([((start_idx == goal_idx) | stuck0)[:, None],
-                       (idxs_raw[:, 1:] == goal_idx[:, None])
-                       | stuck.gather(1, es)], dim=1)
-    done_before = torch.cat([
-        torch.zeros((b, 1), dtype=torch.bool, device=succ.device),
-        torch.cumsum(flags.int(), dim=1)[:, :-1] > 0], dim=1)
-    valids = ~done_before
-    length = valids.sum(dim=1)
-    stop = torch.clamp(torch.argmax(flags.int(), dim=1), max=max_len - 1)
-    final = torch.where(flags.any(dim=1),
-                        idxs_raw.gather(1, stop[:, None])[:, 0],
-                        idxs_raw[:, max_len - 1])
-    idxs = torch.where(valids, idxs_raw, final[:, None])
-    return idxs, valids, length, final
-
-
 def extract_path_turning(nbr_idx, nbr_dist, nbr_valid, enter_cost, dist_gb,
                          bin_of_edge, start_idx, goal_idx, positions,
                          turning_weight: float, *, max_len: int = 512,
@@ -263,7 +220,7 @@ def extract_path_turning(nbr_idx, nbr_dist, nbr_valid, enter_cost, dist_gb,
     e0 = start_idx * k + torch.argmin(cand0, dim=1)
     stuck0 = ~torch.isfinite(cand0.amin(dim=1))
 
-    idxs, valids, length, final = _walk_table(
+    idxs, valids, length, final = walk_table(
         succ_edge, edge_stuck, e0, stuck0, edge_dst, start_idx, goal_idx,
         max_len)
     ok = torch.isfinite(dist_gb[rows, start_idx].amin(dim=1)) \
@@ -285,7 +242,7 @@ def extract_path(nbr_idx, nbr_dist, nbr_valid, enter_cost, dist, start_idx,
     succ = safe.expand(cand.shape[0], -1, -1).gather(2, kbest[..., None])[..., 0]
     node_stuck = ~torch.isfinite(cand.amin(dim=2))
     start = start_idx[:, None]
-    idxs, valids, length, final = _walk_table(
+    idxs, valids, length, final = walk_table(
         succ, node_stuck, succ.gather(1, start)[:, 0],
         node_stuck.gather(1, start)[:, 0],
         torch.arange(g, device=dist.device), start_idx, goal_idx, max_len)

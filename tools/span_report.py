@@ -2,8 +2,9 @@
 on (``dddmr_navigation_tpu_torch/runtime/tracing.py``), read into per-layer
 numbers: the layers' times a tick from the spans, host reads a tick, the
 mark/clear graph's (and the fleet's localize graph's) captures and
-replays a tick and captures over every tick, the share of marked cells
-past the cap, the cold first tick, and, with
+replays a tick and captures over every tick, the successor-table walk
+kernel's launches a tick (``walk.kernel``: one an extraction), the share
+of marked cells past the cap, the cold first tick, and, with
 ``--trace 1``, the profiled ticks' device-idle time, kernel launches and
 CUDA sync-debug warnings by the innermost span open at each.
 
@@ -126,6 +127,8 @@ def span_metrics(kind, kept, roots, window, counters) -> dict:
                 kept, window, f"{graph}.graph_{what}")
         out[f"{kind}.{graph}_graph_captures"] = (reads_per_tick(
             kept, roots, f"{graph}.graph_capture") or 0.0) * len(roots)
+    out[f"{kind}.walk_kernels_per_tick"] = reads_per_tick(kept, window,
+                                                          "walk.kernel")
     if kind == "fleet" and counters.get("marked_cells"):
         out["fleet.marked_dropped_pct"] = 100.0 * (
             1.0 - counters["marked_kept"] / counters["marked_cells"])
